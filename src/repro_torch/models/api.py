@@ -1,0 +1,50 @@
+"""Model API, serving subset: parameter init and the serve dispatchers.
+
+The twin of ``repro.models.api`` for what the continuous-batching engine
+needs; the training, legacy-decode and encoder-decoder entry points wait
+for later slices of the port.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import lm, paged_lm
+from .types import ModelConfig
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  f"not ported yet")
+    return lm.init_lm(cfg, generator, device)
+
+
+# ---------------------------------------------------------------------------
+# continuous-batching serve path (slot batches over a paged / dense cache)
+# ---------------------------------------------------------------------------
+
+def serve_supported(cfg: ModelConfig) -> tuple[bool, str]:
+    """Whether the continuous-batching engine covers this arch."""
+    return paged_lm.serve_supported(cfg)
+
+
+def init_serve_cache(cfg: ModelConfig, *, slots: int, max_len: int,
+                     backend: str = "paged", page_size: int = 16,
+                     n_pages: int | None = None, device=None):
+    return paged_lm.init_serve_cache(cfg, slots=slots, max_len=max_len,
+                                     backend=backend, page_size=page_size,
+                                     n_pages=n_pages, device=device)
+
+
+def serve_decode(params, tokens, active, temps, key_data, cache,
+                 cfg: ModelConfig, **kw):
+    """Slot-batched decode step; see :func:`paged_lm.serve_decode_step`."""
+    return paged_lm.serve_decode_step(params, tokens, active, temps, key_data,
+                                      cache, cfg, **kw)
+
+
+def serve_prefill(params, tokens, n_valid, slot, temp, key_data, cache,
+                  cfg: ModelConfig, **kw):
+    """Chunked prefill for one slot; see :func:`paged_lm.serve_prefill_chunk`."""
+    return paged_lm.serve_prefill_chunk(params, tokens, n_valid, slot, temp,
+                                        key_data, cache, cfg, **kw)
