@@ -14,7 +14,18 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    completion, page accounting and that every decode step's attention went
    through the paged-attention kernel;
 5. hold the kernel read path against the gather read path on one prompt,
-   in bfloat16 (reported) and float32 (held to 5e-2).
+   in bfloat16 (reported) and float32 (held to 5e-2);
+6. drive the paper's runahead path through its entry points at full size,
+   with every launch counter set to 0 just before and read just after:
+   ``ops.gather`` (runahead at depths 1, 2, 4, 8 and pipelined) over an
+   OGBN-Arxiv-shaped table (169,343 x 128, float32 and bfloat16) for the
+   destinations of a seeded power-law graph and for uniform indices, each
+   bit-identical to ``table[idx]``; ``ops.gather_bag`` over the graph's
+   padded CSR at depths 1, 2, 4 within its stated tolerance; and
+   ``cache_grid.hit_series`` over the §3.4 profiling grid (132
+   configurations) for four 16,384-address windows of Listing 1's feature
+   loads, equal to the plain version and holding the LRU stack property;
+7. time each of those kernels against its plain version and library call.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -38,6 +49,19 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}   # f32: summation order
 KERNEL_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 KERNEL_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:87"
+GATHER_SOURCE = ("src/repro_torch/kernels/gather_runahead/csrc/"
+                 "gather_runahead.cu")
+GATHER_REPLACES = "src/repro/kernels/gather_runahead/gather_runahead.py"
+GRID_SOURCE = "src/repro_torch/core/cgra/csrc/cache_grid.cu"
+GRID_REPLACES = "src/repro/core/cgra/jaxcache.py:56"
+# OGBN-Arxiv (Hu et al., OGB, arXiv:2005.00687): nodes, edges, feature width
+ARXIV_NODES, ARXIV_EDGES, ARXIV_FEATURES = 169_343, 1_166_243, 128
+BLOCK_ROWS = 8
+GATHER_N = ARXIV_EDGES // BLOCK_ROWS * BLOCK_ROWS   # 1,166,240: cut to 8s
+GATHER_DEPTHS = (1, 2, 4, 8)
+BAG_DEPTHS = (1, 2, 4)
+WINDOW_EDGES = 8_192          # 2 feature loads per edge: 16,384 addresses
+N_WINDOWS = 4
 
 
 def card_line() -> str:
@@ -268,6 +292,302 @@ def phase_reads(cfg, params) -> None:
           flush=True)
 
 
+def powerlaw_graph(n_nodes: int, n_edges: int, rng: np.random.Generator,
+                   alpha: float = 1.5) -> tuple[np.ndarray, np.ndarray]:
+    """CSR-ordered edge list with Zipf-distributed destinations (a copy of
+    the JAX package's ``core/cgra/trace.py`` ``_powerlaw_graph``)."""
+    src = np.sort(rng.integers(0, n_nodes, size=n_edges))
+    ranks = rng.zipf(alpha, size=n_edges) % n_nodes
+    perm = rng.permutation(n_nodes)  # detach hub ids from low addresses
+    dst = perm[ranks]
+    return src.astype(np.int64), dst.astype(np.int64)
+
+
+def runahead_inputs() -> dict:
+    """The runahead path's data, from seeds: an OGBN-Arxiv-shaped feature
+    table, two index streams, the graph's padded CSR, and the profiler's
+    address windows."""
+    src, dst = powerlaw_graph(ARXIV_NODES, ARXIV_EDGES,
+                              np.random.default_rng(0))
+    # the pattern of trace.py's random_access: uniform over the table
+    uniform = np.random.default_rng(7).integers(0, ARXIV_NODES,
+                                                 size=GATHER_N)
+    streams = {name: torch.from_numpy(a.astype(np.int32)).cuda()
+               for name, a in (("graph", dst[:GATHER_N]),
+                               ("uniform", uniform))}
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    f32 = torch.randn(ARXIV_NODES, ARXIV_FEATURES, generator=gen,
+                      device="cuda")
+    tables = {torch.float32: f32, torch.bfloat16: f32.to(torch.bfloat16)}
+    # padded CSR by source: row s lists s's out-edges, padded with index 0
+    # and weight 0 up to the largest out-degree
+    deg = np.bincount(src, minlength=ARXIV_NODES)
+    fanin = int(deg.max())
+    pos = np.arange(ARXIV_EDGES) - np.concatenate(([0], np.cumsum(deg)))[src]
+    bag_idx = np.zeros((ARXIV_NODES, fanin), np.int32)
+    bag_w = np.zeros((ARXIV_NODES, fanin), np.float32)
+    bag_idx[src, pos] = dst
+    bag_w[src, pos] = np.random.default_rng(1).random(ARXIV_EDGES,
+                                                      dtype=np.float32)
+    # Listing 1's feature loads (trace.py gcn_aggregate, feat_dim 2):
+    # 4 * (dst[i] * 2 + d) for d in 0, 1, in edge order
+    feat = (4 * (dst[:, None] * 2 + np.arange(2))).reshape(-1)
+    windows = [feat[w * 2 * WINDOW_EDGES:(w + 1) * 2 * WINDOW_EDGES]
+               for w in range(N_WINDOWS)]
+    return dict(streams=streams, tables=tables,
+                bag_idx=torch.from_numpy(bag_idx).cuda(),
+                bag_w=torch.from_numpy(bag_w).cuda(), fanin=fanin,
+                windows=windows)
+
+
+def bag_tolerance(table, idx, w) -> torch.Tensor:
+    """Elementwise bound on |kernel - plain| for the bag.  Two orders of a
+    K-term float32 sum of rounded products differ by at most
+    K * 2**-23 * sum_k |w x| (each is within (K - 1) u + u of the exact
+    sum, u = 2**-24).  A bfloat16 output adds one bfloat16 rounding of
+    each sum: 2**-7 of its magnitude."""
+    from repro_torch.kernels.gather_runahead import ref
+
+    fanin = idx.shape[1]
+    abs_sum = ref.gather_bag_ref(table.float().abs(), idx, w.float().abs())
+    order = fanin * 2.0**-23 * abs_sum
+    if table.dtype == torch.float32:
+        return order
+    exact = ref.gather_bag_ref(table.float(), idx, w)
+    return order + 2.0**-7 * (exact.abs() + order)
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.uint8), b.view(torch.uint8))
+
+
+def phase_runahead(inp: dict, grid) -> dict:
+    """The runahead path through its entry points, launch counters set to 0
+    just before and read just after; every output is checked against the
+    plain version (which launches no kernel).  Returns the launches and
+    the measured errors."""
+    from repro_torch.core.cgra import cache_grid
+    from repro_torch.kernels.gather_runahead import gather_runahead as kernel
+    from repro_torch.kernels.gather_runahead import ops, ref
+
+    counters = {"runahead_gather": kernel.runahead_gather,
+                "pipelined_gather": kernel.pipelined_gather,
+                "gather_bag": kernel.gather_bag,
+                "cache_grid_scan": cache_grid.cache_grid_scan}
+    errs = dict.fromkeys(counters, 0.0)
+    plain = {}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    for dtype, table in inp["tables"].items():
+        name = str(dtype).split(".")[-1]
+        for sname, idx in inp["streams"].items():
+            want = ref.gather_ref(table, idx)
+            runs = [("runahead_gather", "runahead", d) for d in GATHER_DEPTHS]
+            for kname, impl, depth in runs + [("pipelined_gather",
+                                               "pipelined", 2)]:
+                out = ops.gather(table, idx, impl=impl, block_rows=BLOCK_ROWS,
+                                 depth=depth)
+                err = (out.float() - want.float()).abs().max().item()
+                errs[kname] = max(errs[kname], err)
+                if not bit_equal(out, want):
+                    raise AssertionError(f"{impl} gather {name} {sname} "
+                                         f"depth {depth}: not bit-identical "
+                                         f"to table[idx] (max abs err {err})")
+            print(f"phase 6: gather {name} {sname} n={idx.shape[0]}: "
+                  f"runahead at depths {GATHER_DEPTHS} and pipelined "
+                  f"bit-identical to table[idx]", flush=True)
+        tol = bag_tolerance(table, inp["bag_idx"], inp["bag_w"])
+        want = ref.gather_bag_ref(table, inp["bag_idx"], inp["bag_w"])
+        for depth in BAG_DEPTHS:
+            out = ops.gather_bag(table, inp["bag_idx"], inp["bag_w"],
+                                 depth=depth)
+            diff = (out.float() - want.float()).abs()
+            errs["gather_bag"] = max(errs["gather_bag"], diff.max().item())
+            if not (torch.isfinite(out.float()).all() and out.shape
+                    == want.shape and bool((diff <= tol).all())):
+                raise AssertionError(f"gather_bag {name} depth {depth}: max "
+                                     f"abs err {diff.max().item()}, worst "
+                                     f"excess {(diff - tol).max().item()}")
+        print(f"phase 6: gather_bag {name} S={table.shape[0]} "
+              f"K={inp['fanin']} (largest out-degree) at depths "
+              f"{BAG_DEPTHS}: max abs err {errs['gather_bag']:.3e} within "
+              f"K * 2**-23 * sum|w x|"
+              + ("" if dtype == torch.float32
+                 else " + one bfloat16 rounding (2**-7 |sum|)"), flush=True)
+        del tol, want, out
+    hits = [cache_grid.hit_series(a, grid) for a in inp["windows"]]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expect = {"runahead_gather": 2 * 2 * len(GATHER_DEPTHS),
+              "pipelined_gather": 2 * 2, "gather_bag": 2 * len(BAG_DEPTHS),
+              "cache_grid_scan": N_WINDOWS}
+    if launches != expect:
+        raise AssertionError(f"runahead path launches {launches} != {expect}")
+    print(f"phase 6: launches on the path: {json.dumps(launches)}",
+          flush=True)
+
+    t_len, n_cfg = len(inp["windows"][0]), len(grid)
+    misses = []
+    for w, (a, h) in enumerate(zip(inp["windows"], hits)):
+        m = (~h).sum(dim=1).cpu().numpy().reshape(33, -1)   # [ways, lines]
+        misses.append(m)
+        if h.shape != (n_cfg, t_len) or (m[0] != t_len).any() \
+                or (np.diff(m, axis=0) > 0).any():
+            raise AssertionError(f"window {w}: misses not monotone in ways "
+                                 f"at fixed line, or ways 0 hits: {m}")
+    # the plain loop on the card is ~130k launches: once, on window 0; the
+    # last window is held against the plain loop on the host
+    a = cache_grid.as_int32(inp["windows"][0], "cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = cache_grid.hit_series_ref(a, grid)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    host = cache_grid.hit_series(inp["windows"][-1], grid, device="cpu")
+    for w, other in ((0, want), (N_WINDOWS - 1, host)):
+        wrong = int((hits[w].cpu() != other.cpu()).sum().item())
+        errs["cache_grid_scan"] = max(errs["cache_grid_scan"], float(wrong))
+        if wrong:
+            raise AssertionError(f"cache_grid_scan window {w}: {wrong} of "
+                                 f"{n_cfg * t_len} hits differ from the "
+                                 f"plain version on {other.device}")
+    print(f"phase 6: cache grid {n_cfg} configurations x {t_len} accesses "
+          f"x {N_WINDOWS} windows: misses monotone in ways at every line "
+          f"size; kernel == plain exactly on window 0 (plain on the card) "
+          f"and window {N_WINDOWS - 1} (plain on the host); misses at 8 ways "
+          f"(lines 16, 32, 64, 128) per window "
+          f"{[m[8].tolist() for m in misses]}", flush=True)
+    return dict(launches=launches, errs=errs, grid_plain_ms=plain_ms,
+                grid_misses=misses)
+
+
+def mshr_sweep(table, idx, flush) -> dict:
+    """The runahead gather at one block per SM, where the ring is the only
+    source of rows in flight (SMs x depth x block_rows): the paper's
+    runahead-vs-MSHR sweep (Fig. 14) on the card.  Outputs are checked."""
+    from repro_torch.kernels.gather_runahead import gather_runahead as kernel
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    want = table[idx.long()]
+    out = {}
+    for depth in GATHER_DEPTHS:
+        def run():
+            return kernel.runahead_gather(table, idx, block_rows=BLOCK_ROWS,
+                                          depth=depth, grid_blocks=sms)
+        if not bit_equal(run(), want):
+            raise AssertionError(f"runahead gather at {sms} blocks, depth "
+                                 f"{depth}: not bit-identical to table[idx]")
+        out[depth] = round(time_ms(run, flush), 4)
+    return out
+
+
+def phase_runahead_times(inp: dict, grid, stats: dict,
+                         flush: torch.Tensor) -> dict:
+    """Kernel, plain and library times of the runahead path's kernels, with
+    their bounds; returns the kernels-line entries."""
+    from repro_torch.core.cgra import cache_grid
+    from repro_torch.kernels.gather_runahead import gather_runahead as kernel
+    from repro_torch.kernels.gather_runahead import ref
+
+    card = card_line()
+    entries = {}
+    d = ARXIV_FEATURES
+    for dtype, table in inp["tables"].items():
+        name, elt = str(dtype).split(".")[-1], table.element_size()
+        for sname, idx in inp["streams"].items():
+            n = idx.shape[0]
+            distinct = torch.unique(idx).numel()
+            n_bytes = distinct * d * elt + n * 4 + n * d * elt
+            bound = n_bytes / MEM_BYTES_PER_S * 1e3
+            plain_ms = time_ms(lambda: ref.gather_ref(table, idx), flush)
+            library_ms = time_ms(lambda: torch.index_select(table, 0, idx),
+                                 flush)
+            depth_ms = {depth: time_ms(
+                lambda: kernel.runahead_gather(table, idx,
+                                               block_rows=BLOCK_ROWS,
+                                               depth=depth), flush)
+                for depth in GATHER_DEPTHS}
+            pipe_ms = time_ms(lambda: kernel.pipelined_gather(table, idx),
+                              flush)
+            if dtype == torch.float32:
+                capped_ms = mshr_sweep(table, idx, flush)
+                print(f"phase 7: gather {name} {sname} at one block per SM "
+                      f"({BLOCK_ROWS} rows a tile): runahead ms by depth "
+                      f"{json.dumps(capped_ms)}; {card}", flush=True)
+            print(f"phase 7: gather {name} {sname} n={n} distinct rows "
+                  f"{distinct}: runahead ms by depth "
+                  f"{json.dumps({k: round(v, 4) for k, v in depth_ms.items()})}"
+                  f" pipelined_ms={pipe_ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={library_ms:.4f} (index_select) "
+                  f"bound_ms={bound:.4f} ({n_bytes} bytes) bytes-bound; "
+                  f"{card}", flush=True)
+            if dtype == torch.float32 and sname == "graph":
+                common = dict(plain_ms=plain_ms, bound_ms=bound,
+                              bound_by="bytes", library_ms=library_ms)
+                entries["runahead_gather"] = dict(ms=depth_ms[2], **common)
+                entries["pipelined_gather"] = dict(ms=pipe_ms, **common)
+
+        idx, w = inp["bag_idx"], inp["bag_w"]
+        s, k = idx.shape
+        distinct = torch.unique(idx).numel()
+        n_bytes = distinct * d * elt + s * k * 4 * 2 + s * d * elt
+        flops = 2 * s * k * d
+        t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS_PER_S * 1e3
+        idx64, w_lib = idx.long(), w.to(dtype)
+        plain_ms = time_ms(lambda: ref.gather_bag_ref(table, idx, w), flush)
+        library_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
+            idx64, table, per_sample_weights=w_lib, mode="sum"), flush)
+        depth_ms = {depth: time_ms(
+            lambda: kernel.gather_bag(table, idx, w, depth=depth), flush)
+            for depth in BAG_DEPTHS}
+        print(f"phase 7: gather_bag {name} S={s} K={k} distinct rows "
+              f"{distinct}: ms by depth "
+              f"{json.dumps({k_: round(v, 4) for k_, v in depth_ms.items()})}"
+              f" plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+              f"(embedding_bag, sum, per-sample weights) "
+              f"bound_ms={max(t_bytes, t_ops):.4f} ({n_bytes} bytes, {flops} "
+              f"flops) {'bytes' if t_bytes >= t_ops else 'operations'}-bound; "
+              f"{card}", flush=True)
+        if dtype == torch.float32:
+            entries["gather_bag"] = dict(
+                ms=depth_ms[2], plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=library_ms)
+
+    a = cache_grid.as_int32(inp["windows"][0], "cuda")
+    t_len, n_cfg = a.shape[0], len(grid)
+    ms = time_ms(lambda: cache_grid.cache_grid_scan(a, grid), flush,
+                 iters=20)
+    # each step compares the tag against n_ways ways, and on a miss the
+    # stamps of n_ways ways; bytes: the addresses in, one byte per hit out
+    ways = grid.ways.astype(np.int64)
+    m0 = stats["grid_misses"][0].reshape(-1)
+    ops_count = int((ways * (t_len + m0)).sum())
+    n_bytes = t_len * 4 + n_cfg * t_len
+    t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = ops_count / F32_FLOPS_PER_S * 1e3
+    plain_ms = stats["grid_plain_ms"]
+    print(f"phase 7: cache_grid_scan T={t_len} x C={n_cfg} = "
+          f"{t_len * n_cfg} steps: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"(one run, phase 6) "
+          f"bound_ms={max(t_bytes, t_ops):.6f} ({n_bytes} bytes, "
+          f"{ops_count} compares) "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}-bound; the "
+          f"scan is a dependent chain of {t_len} steps per configuration; "
+          f"{card}", flush=True)
+    entries["cache_grid_scan"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None)
+    return entries
+
+
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
     from repro_torch.models import api
@@ -319,11 +639,40 @@ def main() -> int:
           f"{time.monotonic() - t0:.2f} s", flush=True)
     launches = phase_serve(cfg, params)
     phase_reads(cfg, params)
+    del params
 
-    print(card_line())
-    print(json.dumps({"kernels": [{
+    from repro_torch.core.cgra import cache_grid
+    t0 = time.monotonic()
+    inp = runahead_inputs()
+    # reconfig.reconfigure's default profiling grid for presets.RECONFIG:
+    # ways 0..32 (4 caches x 8 ways) x lines (16, 32, 64, 128), 512 B ways
+    grid = cache_grid.ConfigGrid.build(512, range(33), (16, 32, 64, 128))
+    print(f"phase 6: OGBN-Arxiv-shaped inputs ({ARXIV_NODES} x "
+          f"{ARXIV_FEATURES} table; power-law graph of {ARXIV_EDGES} edges, "
+          f"seed 0, alpha 1.5; gather streams cut to n={GATHER_N}; "
+          f"{len(grid)} cache configurations) made in "
+          f"{time.monotonic() - t0:.2f} s", flush=True)
+    stats = phase_runahead(inp, grid)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    times = phase_runahead_times(inp, grid, stats, flush)
+    del flush
+
+    kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, **kstats}]}))
+        "replaces": KERNEL_REPLACES, "launches": launches, **kstats}]
+    replaces = {"runahead_gather": f"{GATHER_REPLACES}:91",
+                "pipelined_gather": f"{GATHER_REPLACES}:117",
+                "gather_bag": f"{GATHER_REPLACES}:177",
+                "cache_grid_scan": GRID_REPLACES}
+    for name, where in replaces.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": GRID_SOURCE if name == "cache_grid_scan"
+            else GATHER_SOURCE,
+            "replaces": where, "launches": stats["launches"][name],
+            "max_abs_err": stats["errs"][name], **times[name]})
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,13 @@
 """Build the port's CUDA sources into shared libraries at first use.
 
-Each ``kernels/<name>/csrc/<name>.cu`` is compiled by ``nvcc`` on its own
-into ``build/kernels/<name>-<hash>.so`` at the root of the checkout, where
-``<hash>`` covers the source bytes and the compiler flags, so an edited
-source builds anew and an unchanged one is reused.  The sources expose a
-plain C interface and include no PyTorch headers, which keeps a build to
-seconds; the wrappers load the library with :mod:`ctypes` and pass device
-pointers and the current stream as integers.
+Each source in :data:`SOURCES` (``kernels/<name>/csrc/<name>.cu``, and
+the cache-grid profiler's ``core/cgra/csrc/cache_grid.cu``) is compiled by
+``nvcc`` on its own into ``build/kernels/<name>-<hash>.so`` at the root of
+the checkout, where ``<hash>`` covers the source bytes and the compiler
+flags, so an edited source builds anew and an unchanged one is reused.
+The sources expose a plain C interface and include no PyTorch headers,
+which keeps a build to seconds; the wrappers load the library with
+:mod:`ctypes` and pass device pointers and the current stream as integers.
 
 Nothing is built when a module is imported: only a wrapper handed a CUDA
 tensor (or :func:`build`, called by ``chip_smoke.py``) starts ``nvcc``.
@@ -27,6 +28,10 @@ BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
 SOURCES = {
     "paged_attention": KERNELS_DIR / "paged_attention" / "csrc"
     / "paged_attention.cu",
+    "gather_runahead": KERNELS_DIR / "gather_runahead" / "csrc"
+    / "gather_runahead.cu",
+    "cache_grid": KERNELS_DIR.parent / "core" / "cgra" / "csrc"
+    / "cache_grid.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

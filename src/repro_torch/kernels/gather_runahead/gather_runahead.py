@@ -1,0 +1,191 @@
+"""Wrappers of the CUDA row-gather kernels (``csrc/gather_runahead.cu``).
+
+Each wrapper checks its operands, allocates the output, launches on
+PyTorch's current stream without synchronising, and raises if the launch
+is refused.  The library is built at first use
+(:mod:`repro_torch.kernels._build`).  Each wrapper's ``launches``
+attribute counts its launches and nothing else.  The contract on indices
+is ``0 <= idx < V``, as in the JAX package; it is not checked, since that
+would cost a synchronisation with the card.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from .. import _build
+
+MAX_DEPTH = 8                    # the kernels are instantiated for 1..8
+MAX_SMEM_BYTES = 232_448         # dynamic shared memory a Hopper block may use
+MAX_BAG_ROW_BYTES = 2048         # the bag's accumulator: 4 x 32 lanes x 16 B
+_BAG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("gather_runahead")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.runahead_gather_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
+    lib.pipelined_gather_launch.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
+    lib.gather_bag_launch.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
+    for fn in (lib.runahead_gather_launch, lib.pipelined_gather_launch,
+               lib.gather_bag_launch):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_device(who: str, **tensors) -> torch.device:
+    device = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"{who}: {name} is on {t.device}; every operand "
+                             f"must be on one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be contiguous")
+    return device
+
+
+def _check_rows(who: str, table: torch.Tensor) -> int:
+    """Row bytes of a 2-D table whose rows the kernels copy in 16-byte
+    chunks."""
+    if table.dim() != 2:
+        raise ValueError(f"{who}: table must be [V, D], got "
+                         f"{tuple(table.shape)}")
+    row_bytes = table.shape[1] * table.element_size()
+    if row_bytes % 16 or row_bytes == 0:
+        raise ValueError(f"{who}: a row of D={table.shape[1]} {table.dtype} "
+                         f"is {row_bytes} bytes, not a positive multiple of "
+                         f"16: the kernels copy rows in 16-byte chunks")
+    if table.data_ptr() % 16:
+        raise ValueError(f"{who}: table must start on a 16-byte boundary")
+    return row_bytes
+
+
+def _check_depth(who: str, depth: int, items: int) -> int:
+    """The reference's clamp ``min(depth, items)``, within 1..MAX_DEPTH."""
+    if not 1 <= depth <= MAX_DEPTH:
+        raise ValueError(f"{who}: depth={depth} not in 1..{MAX_DEPTH}")
+    return max(1, min(depth, items))
+
+
+def _raise_on(who: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{who}: kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check_index(who: str, idx: torch.Tensor, dims: int) -> None:
+    if idx.dtype != torch.int32 or idx.dim() != dims:
+        raise ValueError(f"{who}: idx must be a {dims}-D int32 tensor, got "
+                         f"{idx.dim()}-D {idx.dtype}")
+    if idx.numel() >= 2**31:
+        raise ValueError(f"{who}: {idx.numel()} indices; at most 2**31 - 1")
+
+
+def runahead_gather(table: torch.Tensor, idx: torch.Tensor, *,
+                    block_rows: int = 8, depth: int = 2,
+                    grid_blocks: int | None = None) -> torch.Tensor:
+    """out[i] = table[idx[i]] with ``depth`` index blocks of ``block_rows``
+    row copies in flight per CUDA block.  table [V, D] (rows a multiple of
+    16 bytes), idx [n] int32 with n % block_rows == 0 -> [n, D].
+
+    ``grid_blocks`` caps the number of CUDA blocks (None: as many as fill
+    the card), which fixes the rows in flight on the card at
+    ``grid_blocks * depth * block_rows``: the MSHR count of the paper's
+    Fig. 14 sweep."""
+    who = "runahead_gather"
+    if grid_blocks is not None and grid_blocks < 1:
+        raise ValueError(f"{who}: grid_blocks={grid_blocks} must be >= 1")
+    device = _check_device(who, table=table, idx=idx)
+    row_bytes = _check_rows(who, table)
+    _check_index(who, idx, 1)
+    n = idx.shape[0]
+    if block_rows < 1 or n % block_rows:
+        raise ValueError(f"{who}: n={n} is not a multiple of "
+                         f"block_rows={block_rows}")
+    n_tiles = n // block_rows
+    depth = _check_depth(who, depth, n_tiles)
+    if depth * block_rows * row_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{who}: a ring of {depth} x {block_rows} rows of "
+                         f"{row_bytes} bytes exceeds {MAX_SMEM_BYTES} bytes "
+                         f"of shared memory")
+    out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=device)
+    if n == 0:
+        return out
+    with torch.cuda.device(device):
+        err = _lib().runahead_gather_launch(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), n_tiles,
+            block_rows, row_bytes, depth, grid_blocks or 0, _stream(device))
+    _raise_on(who, err)
+    runahead_gather.launches += 1
+    return out
+
+
+def pipelined_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[i] = table[idx[i]], one row per warp with no ring: the baseline
+    the runahead gather is measured against."""
+    who = "pipelined_gather"
+    device = _check_device(who, table=table, idx=idx)
+    row_bytes = _check_rows(who, table)
+    _check_index(who, idx, 1)
+    n = idx.shape[0]
+    out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=device)
+    if n == 0:
+        return out
+    with torch.cuda.device(device):
+        err = _lib().pipelined_gather_launch(
+            table.data_ptr(), idx.data_ptr(), out.data_ptr(), n, row_bytes,
+            _stream(device))
+    _raise_on(who, err)
+    pipelined_gather.launches += 1
+    return out
+
+
+def gather_bag(table: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
+               *, depth: int = 2) -> torch.Tensor:
+    """out[s] = sum_k w[s,k] * table[idx[s,k]] in float32, cast to the
+    table's type, with ``depth`` output rows of K row copies in flight per
+    CUDA block.  table [V, D] float32 or bfloat16 (rows of at most 2048
+    bytes); idx [S, K] int32; weights [S, K] float32 -> [S, D]."""
+    who = "gather_bag"
+    device = _check_device(who, table=table, idx=idx, weights=weights)
+    row_bytes = _check_rows(who, table)
+    _check_index(who, idx, 2)
+    if table.dtype not in _BAG_DTYPES or weights.dtype != torch.float32:
+        raise ValueError(f"{who}: want a table in {list(_BAG_DTYPES)} and "
+                         f"float32 weights, got {table.dtype} and "
+                         f"{weights.dtype}")
+    if weights.shape != idx.shape:
+        raise ValueError(f"{who}: weights {tuple(weights.shape)} != idx "
+                         f"{tuple(idx.shape)}")
+    if row_bytes > MAX_BAG_ROW_BYTES:
+        raise ValueError(f"{who}: a row of {row_bytes} bytes exceeds the "
+                         f"kernel's {MAX_BAG_ROW_BYTES}-byte accumulator")
+    s, k = idx.shape
+    depth = _check_depth(who, depth, s)
+    if depth * k * row_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"{who}: a ring of {depth} x {k} rows of {row_bytes} "
+                         f"bytes exceeds {MAX_SMEM_BYTES} bytes of shared "
+                         f"memory; lower depth")
+    out = torch.empty((s, table.shape[1]), dtype=table.dtype, device=device)
+    if s == 0:
+        return out
+    with torch.cuda.device(device):
+        err = _lib().gather_bag_launch(
+            _BAG_DTYPES[table.dtype], table.data_ptr(), idx.data_ptr(),
+            weights.data_ptr(),
+            out.data_ptr(), s, k, table.shape[1], depth, _stream(device))
+    _raise_on(who, err)
+    gather_bag.launches += 1
+    return out
+
+
+runahead_gather.launches = 0
+pipelined_gather.launches = 0
+gather_bag.launches = 0
