@@ -1,1 +1,2 @@
-"""Parameter conversion from the JAX reference."""
+"""Training checkpoints and parameter conversion to and from the JAX
+reference."""

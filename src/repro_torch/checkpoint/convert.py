@@ -1,10 +1,12 @@
-"""Parameters of the JAX reference, as numpy arrays, into the port's LM.
+"""Parameters between the JAX reference's tree, as numpy arrays, and the
+port's LM, both ways.
 
 The reference stacks each layer-pattern position's leaves
 ``[n_groups, ...]``; the port holds one :class:`~repro_torch.models.lm.Block`
 per layer, and layer ``group * period + pattern_index`` takes the slice
 ``groups[pattern_index][group]``.  Leaves keep their shapes and dtypes;
-bfloat16 arrays (numpy's ``ml_dtypes`` type) cross as their uint16 bits.
+bfloat16 arrays (numpy's ``ml_dtypes`` type) cross into the port as their
+uint16 bits, and back out widened exactly to float32.
 """
 from __future__ import annotations
 
@@ -85,3 +87,43 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None) -> lm.LM:
         group, p_idx = divmod(layer, cfg.period)
         load_module(block, _slice(np_tree["groups"][p_idx], group))
     return model
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy (never a view of a parameter that trains on)."""
+    t = t.detach().to("cpu", copy=True)
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _nest(named: dict) -> dict:
+    tree: dict = {}
+    for name, t in named.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = _host(t)
+    return tree
+
+
+def _stack(trees: list) -> dict:
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def params_to_numpy(params, cfg: ModelConfig) -> dict:
+    """The port's LM (or a dict of tensors keyed by its parameter names,
+    such as AdamW's moments) as the reference's parameter tree of numpy
+    arrays (groups stacked ``[n_groups, ...]``), bfloat16 leaves widened to
+    float32, for a leaf-by-leaf comparison with the reference's state."""
+    named = (dict(params.named_parameters())
+             if isinstance(params, torch.nn.Module) else params)
+    tree = _nest({n: t for n, t in named.items()
+                  if not n.startswith("blocks.")})
+    blocks = [_nest({n.split(".", 2)[2]: t for n, t in named.items()
+                     if n.startswith(f"blocks.{i}.")})
+              for i in range(cfg.n_layers)]
+    tree["groups"] = tuple(_stack(blocks[p_idx::cfg.period])
+                           for p_idx in range(cfg.period))
+    return tree

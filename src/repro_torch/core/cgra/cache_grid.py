@@ -26,6 +26,7 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import _build
 
 MAX_WAYS = 32                    # one lane of a warp per way
@@ -179,19 +180,11 @@ def cache_grid_scan(addrs: torch.Tensor, grid: ConfigGrid) -> torch.Tensor:
 cache_grid_scan.launches = 0
 
 
-def _device(device) -> torch.device:
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' "
-                           "explicitly to run on the CPU")
-    return device
-
-
 def hit_series(addrs, grid: ConfigGrid, device=None) -> torch.Tensor:
     """[C, T] hit booleans for every configuration in the grid, on
     ``device`` (CUDA when None; raises if there is none).  ``addrs`` is
     array-like or a tensor of integer addresses."""
-    a = as_int32(addrs, _device(device))
+    a = as_int32(addrs, resolve_device(device))
     if a.device.type == "cpu":
         return hit_series_ref(a, grid)
     if a.device.type == "cuda":

@@ -30,6 +30,8 @@ SOURCES = {
     / "paged_attention.cu",
     "gather_runahead": KERNELS_DIR / "gather_runahead" / "csrc"
     / "gather_runahead.cu",
+    "flash_attention": KERNELS_DIR / "flash_attention" / "csrc"
+    / "flash_attention.cu",
     "cache_grid": KERNELS_DIR.parent / "core" / "cgra" / "csrc"
     / "cache_grid.cu",
 }

@@ -1,1 +1,2 @@
-"""Step assembly for the serving engine."""
+"""Step assembly (the train step and the serve step pair) and the training
+entry point."""

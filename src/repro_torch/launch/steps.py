@@ -1,19 +1,63 @@
-"""Serve-step assembly for the continuous-batching engine.
+"""The train step and the serve-step assembly.
 
-The twin of ``build_serve_engine_steps`` in ``repro.launch.steps``.  The
-reference jits its step pair and donates the cache argument so the page
-pools update in place; PyTorch runs eagerly, and the steps here write the
-cache tensors in place themselves (see :mod:`repro_torch.models.paged_lm`),
-returning the same dict.  Shapes are still fixed at build time (slot count,
-padded cache length, prefill chunk), whatever the batch composition.
+The twin of ``make_optimizer``, ``train_step`` and
+``build_serve_engine_steps`` in ``repro.launch.steps``.  The reference jits
+its steps and donates the state / cache argument so they update in place;
+PyTorch runs eagerly, and the steps here update the optimizer state and
+the cache tensors in place themselves (see :mod:`repro_torch.optim.adamw`
+and :mod:`repro_torch.models.paged_lm`), returning them.  Serve shapes are
+still fixed at build time (slot count, padded cache length, prefill
+chunk), whatever the batch composition.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any
 
+import torch
+
 from repro_torch.models import api
 from repro_torch.models.types import ModelConfig
+from repro_torch.optim import adamw
+
+
+def make_optimizer(cfg: ModelConfig, lr: float = 3e-4) -> adamw.AdamWConfig:
+    return adamw.AdamWConfig(lr=lr, moment_dtype=cfg.adam_dtype)
+
+
+def train_step(state: dict, batch: dict, cfg: ModelConfig,
+               opt: adamw.AdamWConfig, transform=None, *, device=None):
+    """Loss + grads + AdamW update; returns (state, metrics), the state
+    updated in place.  ``batch`` moves to ``device`` (the card when None).
+
+    ``cfg.accum_steps > 1`` runs gradient accumulation: the batch is split
+    into microbatches run one after another, their gradients summed in
+    float32 (bf16 leaves have bf16 grads, as in the reference)."""
+    params = state["params"]
+    names, leaves = zip(*params.named_parameters())
+    batch = api.batch_to(batch, device)
+    accum = max(1, cfg.accum_steps)
+    if accum == 1:
+        loss = api.train_loss(params, batch, cfg, device=device)
+        grads = torch.autograd.grad(loss, leaves)
+    else:
+        micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
+                 for k, v in batch.items()}
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in leaves]
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        for i in range(accum):
+            mb = {k: v[i] for k, v in micro.items()}
+            l = api.train_loss(params, mb, cfg, device=device)
+            for acc, g in zip(grads, torch.autograd.grad(l, leaves)):
+                acc.add_(g.float())
+            loss = loss + l.detach()
+        grads = [g / accum for g in grads]
+        loss = loss / accum
+    grads = dict(zip(names, grads))
+    state = adamw.apply_updates(state, grads, cfg=opt, transform=transform)
+    metrics = {"loss": loss.detach(), "grad_norm": adamw.global_norm(grads)}
+    return state, metrics
 
 
 @dataclasses.dataclass

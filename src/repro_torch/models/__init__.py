@@ -1,1 +1,2 @@
-"""Model code: config types, layers, the LM and the slot-batched serve steps."""
+"""Model code: config types, layers, the LM (training forward and loss)
+and the slot-batched serve steps."""

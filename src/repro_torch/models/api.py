@@ -1,12 +1,16 @@
-"""Model API, serving subset: parameter init and the serve dispatchers.
+"""Model API: parameter init, the training loss, prefill and the serve
+dispatchers.
 
-The twin of ``repro.models.api`` for what the continuous-batching engine
-needs; the training, legacy-decode and encoder-decoder entry points wait
-for later slices of the port.
+The twin of ``repro.models.api`` for the dense family; the legacy-decode
+and encoder-decoder entry points, and the MoE and SSM families, wait for
+later slices of the port.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 from . import lm, paged_lm
 from .types import ModelConfig
@@ -17,6 +21,41 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device=None):
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   f"not ported yet")
     return lm.init_lm(cfg, generator, device)
+
+
+def batch_to(batch: dict, device=None) -> dict:
+    """Every array of a batch (numpy or tensor) as a tensor on ``device``
+    (the card when None)."""
+    device = resolve_device(device)
+    return {k: (torch.from_numpy(np.asarray(v)) if isinstance(v, np.ndarray)
+                else v).to(device) for k, v in batch.items()}
+
+
+# ---------------------------------------------------------------------------
+# training / prefill
+# ---------------------------------------------------------------------------
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if cfg.family == "encdec":
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
+                                  f"not ported yet")
+
+
+def train_loss(params, batch: dict, cfg: ModelConfig, *,
+               device=None) -> torch.Tensor:
+    """Scalar training loss of ``batch`` (moved to ``device``, the card
+    when None)."""
+    _dense_only(cfg)
+    return lm.lm_loss(params, batch_to(batch, device), cfg,
+                      attn_impl=cfg.attn_impl)
+
+
+def prefill(params, batch: dict, cfg: ModelConfig, *,
+            device=None) -> torch.Tensor:
+    """Last-position logits [B, V] float32 of ``batch``."""
+    _dense_only(cfg)
+    return lm.prefill_logits(params, batch_to(batch, device), cfg,
+                             attn_impl=cfg.attn_impl)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
-"""Layer library, serving subset: norms, RoPE, the SwiGLU MLP and GQA
-attention over a cache with per-row positions.
+"""Layer library: norms, RoPE, the SwiGLU MLP and GQA attention (over a
+cache with per-row positions for serving; reference and blocked attention
+over the whole sequence for training and prefill).
 
 Parameters live in small ``nn.Module``s (:class:`Norm`, :class:`Attention`,
 :class:`MLP`) holding the same leaves, shapes and dtypes as the JAX
@@ -17,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels.flash_attention import ops as flash_ops
 from .types import ModelConfig
 
 DEFAULT_SCALE = 0.02
@@ -205,3 +207,154 @@ def cache_attention(q, k_cache, v_cache, k_positions, q_positions):
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     y = torch.matmul(p.reshape(b, hkv, rep * c, s_len), v_cache)
     return y.reshape(b, hq, c, d)
+
+
+def reference_attention(q, k, v, *, causal: bool, window: int | None = None):
+    """Oracle softmax attention.  q: [B,Hq,Sq,D]; k,v: [B,Hkv,Sk,D].
+    Scores and softmax in float32, probabilities cast to v's dtype for the
+    product with V; a fully masked row gives 0."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    qg = q.reshape(b, hkv, rep, sq, d)
+    scores = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2))
+    scores = scores / math.sqrt(d)
+    mask = _chunk_mask(torch.arange(sq, device=q.device),
+                       torch.arange(sk, device=q.device), causal, window)
+    scores = scores.masked_fill(~mask, -math.inf)
+    probs = torch.softmax(scores, dim=-1)
+    probs = torch.where(torch.isnan(probs), 0.0, probs)  # fully masked rows
+    y = torch.matmul(probs.to(v.dtype), v[:, :, None])
+    return y.reshape(b, hq, sq, d)
+
+
+def _chunk_mask(q_pos, k_pos, causal: bool, window):
+    mask = torch.ones(q_pos.shape[0], k_pos.shape[0], dtype=torch.bool,
+                      device=q_pos.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    return mask
+
+
+def _chunk_masked_out(q_lo: int, q_hi: int, k_lo: int, k_hi: int,
+                      causal: bool, window) -> bool:
+    """Whether no query in positions [q_lo, q_hi] sees a key in [k_lo,
+    k_hi]: such a chunk pair adds exact zeros, so it is skipped."""
+    return (causal and q_hi < k_lo) or (window is not None
+                                        and q_lo - k_hi >= window)
+
+
+def _blocked_bwd(q, k, v, y, lse, dy, causal, window, q_chunk, k_chunk,
+                 q_offset):
+    """FlashAttention-style backward, the port of ``_blocked_vjp_bwd``:
+    scores are recomputed per (q_chunk x k_chunk) pair from the forward's
+    lse, so the [Sq, Sk] probabilities are never stored; every product and
+    accumulation is float32.  Chunk pairs that the masks empty are skipped
+    (the reference adds their zeros)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    nq, nk = sq // q_chunk, sk // k_chunk
+    scale = 1.0 / math.sqrt(d)
+    dy = dy.float()
+    delta = (dy * y.float()).sum(dim=-1)
+    kf, vf = k.float(), v.float()
+    dq = torch.zeros(b, h, sq, d, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(b, h, sk, d, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(b, h, sk, d, dtype=torch.float32, device=q.device)
+    for qi in range(nq):
+        qs = slice(qi * q_chunk, (qi + 1) * q_chunk)
+        q_i = q[:, :, qs].float()
+        dy_i = dy[:, :, qs]
+        lse_i = lse[:, :, qs, None]
+        delta_i = delta[:, :, qs, None]
+        q_lo = q_offset + qi * q_chunk
+        q_pos = q_lo + torch.arange(q_chunk, device=q.device)
+        dq_i = torch.zeros(b, h, q_chunk, d, dtype=torch.float32,
+                           device=q.device)
+        for kj in range(nk):
+            k_lo = kj * k_chunk
+            if _chunk_masked_out(q_lo, q_lo + q_chunk - 1, k_lo,
+                                 k_lo + k_chunk - 1, causal, window):
+                continue
+            ks = slice(k_lo, k_lo + k_chunk)
+            k_j, v_j = kf[:, :, ks], vf[:, :, ks]
+            k_pos = k_lo + torch.arange(k_chunk, device=q.device)
+            s = torch.matmul(q_i, k_j.transpose(-1, -2)) * scale
+            mask = _chunk_mask(q_pos, k_pos, causal, window)
+            p = torch.where(mask, torch.exp(s - lse_i), 0.0)
+            dp = torch.matmul(dy_i, v_j.transpose(-1, -2))
+            ds = p * (dp - delta_i) * scale
+            dq_i += torch.matmul(ds, k_j)
+            dk[:, :, ks] += torch.matmul(ds.transpose(-1, -2), q_i)
+            dv[:, :, ks] += torch.matmul(p.transpose(-1, -2), dy_i)
+        dq[:, :, qs] = dq_i
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """Forward: the flash kernel on CUDA tensors, its plain version on CPU
+    ones (``kernels.flash_attention.ops``), returning y and saving the row
+    lse; backward: :func:`_blocked_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, k_chunk, q_offset):
+        y, lse = flash_ops.attention(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, return_lse=True)
+        ctx.save_for_backward(q, k, v, y, lse)
+        ctx.args = (causal, window, q_chunk, k_chunk, q_offset)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, k, v, y, lse = ctx.saved_tensors
+        dq, dk, dv = _blocked_bwd(q, k, v, y, lse, dy, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blocked_attention(q, k, v, *, causal: bool, window: int | None = None,
+                      q_chunk: int = 512, k_chunk: int = 1024,
+                      q_offset: int = 0, triangular: bool = False):
+    """FlashAttention-style attention with a flash backward (scores
+    recomputed, never stored).  The forward runs the hand-written kernel on
+    the card; chunk sizes shape only the backward.
+
+    GQA KV is expanded to the query heads *outside* the autograd Function,
+    so autograd sums the head repeat.  ``triangular`` is the reference's
+    TPU schedule of the same causal function (its k_chunk follows
+    q_chunk); here it maps to the same Function, whose kernel skips fully
+    masked tiles in every causal call."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    assert sq % q_chunk == 0 and sk % k_chunk == 0, (sq, q_chunk, sk, k_chunk)
+    if hkv != hq:
+        k = k.repeat_interleave(hq // hkv, dim=1)
+        v = v.repeat_interleave(hq // hkv, dim=1)
+    if triangular:
+        k_chunk = q_chunk
+    return _BlockedAttention.apply(q, k, v, causal, window, q_chunk, k_chunk,
+                                   q_offset)
+
+
+def apply_attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
+                    cfg: ModelConfig, *, causal: bool = True,
+                    impl: str = "auto", q_chunk: int = 512,
+                    k_chunk: int = 1024) -> torch.Tensor:
+    """Full-sequence attention (train / prefill)."""
+    dims = attn_dims(cfg)
+    q, k, v = _project_qkv(p, x, x, dims)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions[None, None, :], cfg.rope_theta)
+        k = apply_rope(k, positions[None, None, :], cfg.rope_theta)
+    window = cfg.window if cfg.attention_kind == "swa" else None
+    s = x.shape[1]
+    if impl == "auto":
+        impl = "blocked" if s > max(q_chunk, k_chunk) else "reference"
+    if impl in ("blocked", "triangular"):
+        y = blocked_attention(q, k, v, causal=causal, window=window,
+                              q_chunk=min(q_chunk, s), k_chunk=min(k_chunk, s),
+                              triangular=(impl == "triangular"))
+    else:
+        y = reference_attention(q, k, v, causal=causal, window=window)
+    return _merge_heads(p, y)

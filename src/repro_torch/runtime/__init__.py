@@ -1,1 +1,2 @@
-"""Fault handling shared by the serving engine."""
+"""Fault handling: the checkpoint-restart training driver, the straggler
+watchdog and chaos plans for the serving engine."""

@@ -44,6 +44,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.launch.steps import build_serve_engine_steps
 from repro_torch.models import api
 from repro_torch.models.paged_lm import serve_geometry
@@ -80,10 +81,7 @@ class ServeEngine:
         """``params`` is the port's LM, already on ``device`` (CUDA when
         None).  ``attn_read`` defaults to ``"kernel"`` for the paged
         backend and ``"gather"`` for the dense one."""
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device is available; pass "
-                               "device='cpu' explicitly to run on the CPU")
+        self.device = resolve_device(device)
         ok, why = api.serve_supported(cfg)
         if not ok:
             raise ValueError(f"{cfg.name}: {why}")

@@ -8,15 +8,21 @@ These need the card and skip without one.  On the card:
 here the shapes reach the corners the full sizes do not: rows of more
 than 32 chunks of 16 bytes, fan-ins over 32, block_rows that are no
 multiple of the warps of a block, depths clamped by the item count, a
-grid with more sets than ways, and addresses that wrap in int32.
+grid with more sets than ways, addresses that wrap in int32, and
+attention tiles that the causal diagonal, the window, the tail or a query
+offset cut.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.cgra import cache_grid
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gather_runahead import gather_runahead as kernel
 from repro_torch.kernels.gather_runahead import ops, ref
+from repro_torch.models import layers
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +147,97 @@ def test_cache_grid_kernel_refuses_too_many_ways(card):
     with pytest.raises(ValueError, match="max_ways"):
         cache_grid.cache_grid_scan(
             torch.zeros(4, dtype=torch.int32, device=card), grid)
+
+
+# y: bf16 3e-2 (p rounded to bf16 before P.V, here and in the plain
+# version at different points), f32 1e-4 (summation order over up to 128
+# terms of D and 4,096 keys); lse 1e-4 (float32 in both)
+FLASH_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+
+
+def _qkv(b, h, sq, sk, d, dtype, device, seed=5):
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(b, h, s, d, generator=gen).to(dtype).to(device)
+            for s in (sq, sk, sk)]
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 128),
+                                     (torch.bfloat16, 64),
+                                     (torch.bfloat16, 72),   # scalar route
+                                     (torch.float32, 128),
+                                     (torch.float32, 36)])
+@pytest.mark.parametrize("sq,sk,causal,window,q_offset", [
+    (256, 256, True, None, 0),
+    (200, 200, True, None, 0),        # tails of 64- and 32-row tiles
+    (200, 200, False, None, 0),
+    (256, 256, True, 96, 0),          # rows whose first tiles all drop out
+    (130, 333, False, 50, 0),         # window without causality
+    (64, 320, True, None, 256),       # the last rows of a longer sequence
+    (100, 300, True, 70, 190),
+    (1, 5, True, None, 0),            # one query row; rows past 1 see none
+])
+def test_flash_attention_matches_its_plain_version(card, dtype, d, sq, sk,
+                                                   causal, window, q_offset):
+    q, k, v = _qkv(2, 3, sq, sk, d, dtype, card)
+    before = fa_kernel.flash_attention.launches
+    y, lse = fa_kernel.flash_attention(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    want_y, want_lse = fa_ref.attention_ref(q, k, v, causal=causal,
+                                            window=window, q_offset=q_offset)
+    assert y.dtype == dtype and lse.dtype == torch.float32
+    assert torch.isfinite(y.float()).all() and torch.isfinite(lse).all()
+    assert (y.float() - want_y.float()).abs().max().item() <= FLASH_TOL[dtype]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+
+
+def test_flash_attention_rows_that_see_no_key(card):
+    """q_offset 0 and a window of 0 mask every key: y = 0 and lse =
+    log(1e-20), as the reference's isfinite guards give."""
+    q, k, v = _qkv(1, 2, 70, 70, 128, torch.bfloat16, card)
+    y, lse = fa_kernel.flash_attention(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert y.abs().max().item() == 0.0
+    assert torch.allclose(lse, torch.full_like(lse, float(np.log(1e-20))))
+
+
+def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
+    q, k, v = _qkv(1, 2, 16, 16, 64, torch.bfloat16, card)
+    before = fa_kernel.flash_attention.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="expanded"):
+        fa_kernel.flash_attention(q, k[:, :1].contiguous(),
+                                  v[:, :1].contiguous())
+    with pytest.raises(ValueError, match="16 bytes"):
+        fa_kernel.flash_attention(*_qkv(1, 2, 16, 16, 300, torch.float32,
+                                        card))
+    with pytest.raises(ValueError, match="CUDA"):
+        fa_kernel.flash_attention(q.cpu(), k.cpu(), v.cpu())
+    assert fa_kernel.flash_attention.launches == before
+    # ops realigns and expands what the wrapper refuses
+    y = fa_ops.attention(q[:, :, 1:], k, v, causal=False)
+    assert y.shape == (1, 2, 15, 64)
+
+
+@pytest.mark.parametrize("triangular,window", [(False, None), (True, None),
+                                               (False, 24)])
+def test_blocked_attention_grads_on_the_card(card, triangular, window):
+    """The kernel-forward Function's grads against autograd through the
+    plain reference attention, f32 2e-4 (tests/test_layers.py's bound)."""
+    q, k, v = _qkv(2, 4, 256, 256, 128, torch.float32, card, seed=7)
+    k, v = k[:, :2].contiguous(), v[:, :2].contiguous()      # GQA 4/2
+    grads = []
+    for fn in (lambda *a: layers.reference_attention(*a, causal=True,
+                                                     window=window),
+               lambda *a: layers.blocked_attention(
+                   *a, causal=True, window=window, q_chunk=64, k_chunk=128,
+                   triangular=triangular)):
+        args = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        torch.sin(fn(*args).float()).sum().backward()
+        grads.append([a.grad.float() for a in args])
+    for a, b in zip(*grads):
+        assert (a - b).abs().max().item() <= 2e-4

@@ -16,11 +16,14 @@ from repro.configs import registry as jax_registry
 from repro_torch.configs import registry
 from repro_torch.core.cgra import cache_grid
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.gather_runahead import gather_runahead as gather_kernel
 from repro_torch.kernels.gather_runahead import ops as gather_ops
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import paged_attention as kernel
-from repro_torch.models import api
+from repro_torch.launch import steps, train_lm
+from repro_torch.models import api, layers
 from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -72,6 +75,50 @@ def test_cpu_tensors_take_the_plain_version_and_never_build(monkeypatch):
     assert kernel.paged_attention.launches == before
     with pytest.raises(ValueError, match="CUDA"):       # no silent CPU path
         kernel.paged_attention(q, kp, vp, pt, lengths)
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch):
+    """With no device, train_lm and api.train_loss want CUDA and raise
+    without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_lm.main(["--steps", "1", "--reduced"])
+    cfg = registry.smoke("qwen2-1.5b")
+    params = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": np.zeros((1, 8), np.int32),
+             "labels": np.zeros((1, 8), np.int32)}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.train_loss(params, batch, cfg)
+    assert torch.isfinite(api.train_loss(params, batch, cfg, device="cpu"))
+
+
+def test_training_on_the_cpu_never_builds_or_launches_flash(monkeypatch):
+    """The flash forward, blocked attention's grads and a train step take
+    the plain version for CPU tensors: nothing is built, no launch is
+    counted."""
+    def refuse(*a, **k):
+        raise AssertionError("a CPU call must not build a kernel")
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "_nvcc", refuse)
+    before = fa_kernel.flash_attention.launches
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(1, h, 32, 16, generator=gen).requires_grad_(True)
+               for h in (4, 2, 2))
+    assert fa_ops.attention(q, k, v).shape == (1, 4, 32, 16)
+    layers.blocked_attention(q, k, v, causal=True, q_chunk=16,
+                             k_chunk=16).sum().backward()
+    cfg = dataclasses.replace(registry.smoke("qwen2-1.5b"),
+                              attn_impl="blocked")
+    opt = steps.make_optimizer(cfg)
+    state = train_lm.init_state(cfg, opt, "cpu")
+    batch = {"tokens": np.ones((2, 16), np.int32),
+             "labels": np.ones((2, 16), np.int32)}
+    _, metrics = steps.train_step(state, batch, cfg, opt, device="cpu")
+    assert np.isfinite(metrics["loss"].item())
+    assert fa_kernel.flash_attention.launches == before
+    with pytest.raises(ValueError, match="CUDA"):        # no silent CPU path
+        fa_kernel.flash_attention(q.detach(), q.detach(), q.detach())
+    assert fa_kernel.flash_attention.launches == before
 
 
 def _launch_counts():
@@ -137,7 +184,7 @@ def test_profiler_defaults_to_the_card(monkeypatch):
 def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SOURCES) == {"paged_attention", "gather_runahead",
-                                   "cache_grid"}
+                                   "cache_grid", "flash_attention"}
     for name, src in _build.SOURCES.items():
         assert src.exists() and src.suffix == ".cu", name
         assert _build.library_path(name).parent == \
