@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, runahead and training paths on one
-CUDA card and check them.
+"""Drive the PyTorch port's serving, runahead, training, MoE and SSM paths
+on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -42,7 +42,28 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    recompute); step 0's loss within 2e-2 of the same loss through the
    plain attention and within 0.5 of ln V; a restore of step 4 equal bit
    for bit to the state saved; then 6 steps on one repeated batch must
-   lower its loss.
+   lower its loss;
+10. hold the MoE dispatch and combine kernels against their plain versions
+    (dispatch bit-identical, combine within one bf16 rounding) at dbrx's
+    serving shapes (decode 8 tokens, prefill chunk 64) and 4 groups of
+    1,024 tokens, with the slots of dbrx's own top-4 routing at capacity
+    factor 1.25; time them against the bound, ``index_copy_`` and
+    ``embedding_bag``;
+11. serve full-width dbrx-132b, 8 of its 40 layers, through the engine as
+    in phase 4, with the paged-attention, dispatch and combine counters
+    set to 0 just before and read just after (dispatch and combine once a
+    layer per decode step and prefill chunk); hold the MoE kernels' logits
+    against their plain versions at one prefill chunk and one decode step
+    in float32 (2 layers, 1e-4 of the logit std) and report bfloat16;
+12. hold the SSD kernel against the plain chunked scan at mamba2's head
+    shape (B 4 x S 4,096 x H 80 x P 64 x N 128, bf16 in, f32 y) within
+    1e-4 |want| + 1e-5 max|want| elementwise, and against the per-token
+    recurrence at a small shape; time it against the bound;
+13. run full-width, full-depth mamba2-2.7b: ``api.prefill`` at B 4 x S
+    4,096 with exactly 64 SSD launches, then 32 greedy lockstep
+    ``api.decode`` steps of 8 sequences; hold prefill against 512 decode
+    steps in float32 at 4 layers (1e-3 of the logit std) and report the
+    bfloat16 full-depth gap.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -89,6 +110,12 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:86"
 # the training cell: train_4k's sequence (models/types.py) at batch 4
 TRAIN_B, TRAIN_S = 4, 4_096
 TRAIN_STEPS, CKPT_EVERY, REPEAT_STEPS = 8, 4, 6
+MOE_SOURCE = "src/repro_torch/kernels/moe_dispatch/csrc/moe_dispatch.cu"
+MOE_REPLACES = "src/repro/kernels/moe_dispatch/moe_dispatch.py"
+SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
+SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:73"
+# dbrx-132b's 40 layers are 261 GB in bf16; 8 (54.6 GB) fit one card
+DBRX_LAYERS = 8
 
 
 def card_line() -> str:
@@ -197,10 +224,20 @@ def summarize(xs) -> str:
             if xs else "n/a")
 
 
-def phase_serve(cfg, params) -> int:
+def phase_serve(cfg, params, phase: str = "4") -> dict:
+    """Serve 12 requests on 8 slots through the engine with every launch
+    counter of the path set to 0 just before and read just after; returns
+    the launches by kernel, with the decode steps and prefill chunks."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
     from repro_torch.kernels.paged_attention import paged_attention as kernel
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.scheduler import RequestState
+
+    has_moe = any(spec.ffn == "moe" for spec in cfg.pattern())
+    counters = {"paged_attention": kernel.paged_attention}
+    if has_moe:
+        counters.update(moe_dispatch=moe_kernel.dispatch,
+                        moe_combine=moe_kernel.combine)
 
     engine_kw = dict(slots=8, max_len=512, page_size=16, prefill_chunk=64,
                      attn_read="kernel")
@@ -217,7 +254,8 @@ def phase_serve(cfg, params) -> int:
     eng = ServeEngine(cfg, params, **engine_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.paged_attention.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.monotonic()
     reqs = [eng.submit(p, max_new_tokens=32,
                        temperature=0.8 if i % 2 else 0.0, seed=i)
@@ -232,33 +270,41 @@ def phase_serve(cfg, params) -> int:
         kind = "decode" if eng.metrics.decode_steps > before else "prefill"
         step_ms[kind].append((time.monotonic() - s0) * 1e3)
     wall = time.monotonic() - t0
-    launches = kernel.paged_attention.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
     eng.assert_no_leaks()
     for r in reqs:
         if r.state is not RequestState.FINISHED or len(r.out_tokens) != 32:
             raise AssertionError(f"request {r.rid}: {r.state} with "
                                  f"{len(r.out_tokens)} tokens")
     decode_steps = eng.metrics.decode_steps
-    if launches != decode_steps * cfg.n_layers or launches == 0:
-        raise AssertionError(f"paged_attention launched {launches} times for "
-                             f"{decode_steps} decode steps x {cfg.n_layers} "
-                             f"layers")
+    chunks = len(step_ms["prefill"])
+    expect = {"paged_attention": decode_steps * cfg.n_layers}
+    if has_moe:
+        n_moe = sum(spec.ffn == "moe" for spec in cfg.pattern()) \
+            * cfg.n_groups
+        expect.update(moe_dispatch=n_moe * (decode_steps + chunks),
+                      moe_combine=n_moe * (decode_steps + chunks))
+    if launches != expect or 0 in launches.values():
+        raise AssertionError(f"launches {launches} != {expect} for "
+                             f"{decode_steps} decode steps and {chunks} "
+                             f"prefill chunks x {cfg.n_layers} layers")
     tokens = sum(len(r.out_tokens) for r in reqs)
     ttft = [r.metrics.ttft * 1e3 for r in reqs]
-    print(f"phase 4: served {len(reqs)} requests (prompts "
+    print(f"phase {phase}: served {len(reqs)} requests (prompts "
           f"{int(prompt_lens.min())}-{int(prompt_lens.max())} tokens, "
           f"{int(prompt_lens.sum())} in all; 32 new tokens each; odd "
           f"requests at temperature 0.8) on 8 slots: {tokens} tokens in "
           f"{wall:.3f} s = {tokens / wall:.2f} tokens/s", flush=True)
-    print(f"phase 4: TTFT ms {summarize(ttft)}; decode step ms mean "
+    print(f"phase {phase}: TTFT ms {summarize(ttft)}; decode step ms mean "
           f"{statistics.mean(step_ms['decode']):.3f} over "
           f"{len(step_ms['decode'])}; prefill chunk ms mean "
-          f"{statistics.mean(step_ms['prefill']):.3f} over "
-          f"{len(step_ms['prefill'])}; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
-          f"paged_attention launches {launches} = {decode_steps} decode "
-          f"steps x {cfg.n_layers} layers; page leaks 0; engine "
-          f"{json.dumps(eng.metrics.summary())}", flush=True)
+          f"{statistics.mean(step_ms['prefill']):.3f} over {chunks}; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+          f"launches {json.dumps(launches)} = {decode_steps} decode steps "
+          + (f"(+ {chunks} prefill chunks for the MoE kernels) " if has_moe
+             else "") +
+          f"x {cfg.n_layers} layers; page leaks 0; engine "
+          f"{json.dumps(eng.metrics.summary())}; {card_line()}", flush=True)
     return launches
 
 
@@ -940,6 +986,401 @@ def phase_train(cfg) -> int:
     return launches
 
 
+def moe_slots(t: int, group: int, d: int, gen) -> tuple:
+    """Slots of T tokens in groups of ``group`` under dbrx's own routing
+    (16 experts, top 4, capacity factor 1.25) with a random N(0, 0.02)
+    router over N(0, 1) tokens: (slot [T, 4] int32, n_slots, drop share)."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(registry.get("dbrx-132b"),
+                              moe_group_size=group)
+    router = torch.randn(d, cfg.n_experts, generator=gen, device="cuda") \
+        * 0.02
+    x = torch.randn(t // group, group, d, generator=gen, device="cuda")
+    _, _, _, slot = moe._route(SimpleNamespace(router=router), x, cfg)
+    n_slots = cfg.n_experts * (t // group) * moe.moe_capacity(cfg, group)
+    drop = (slot < 0).float().mean().item()
+    return slot, n_slots, drop
+
+
+def phase_moe_kernels(flush: torch.Tensor) -> dict:
+    """Dispatch and combine against their plain versions at the dbrx
+    serving shapes (decode: 8 tokens; prefill chunk: 64 tokens) and a
+    grouped shape (4 groups of 1,024 tokens), slots from the router's own
+    top-4 routing at capacity factor 1.25; times against the bound and
+    one PyTorch call each.  Returns the kernels-line numbers (decode
+    shape, bf16)."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as kernel
+    from repro_torch.kernels.moe_dispatch import ref
+
+    d, k = 6144, 4
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    card = card_line()
+    out = {}
+    for sname, t, group in (("decode", 8, 8), ("prefill chunk", 64, 64),
+                            ("grouped", 4096, 1024)):
+        slot, n_slots, drop = moe_slots(t, group, d, gen)
+        kept = slot >= 0
+        n_kept = int(kept.sum().item())
+        n_tok_kept = int(kept.any(1).sum().item())   # tokens dispatch reads
+        w = torch.rand(t, k, generator=gen, device="cuda")
+        tok = torch.arange(t, device="cuda")[:, None].expand(t, k)[kept]
+        dest = slot[kept].long()
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            x = torch.randn(t, d, generator=gen, device="cuda").to(dtype)
+            xe = kernel.dispatch(x, slot, n_slots)
+            torch.cuda.synchronize()
+            if not bit_equal(xe, ref.dispatch_ref(x, slot, n_slots)):
+                raise AssertionError(f"moe dispatch {name} {sname}: not "
+                                     f"bit-identical to the plain version")
+            ye = torch.randn(n_slots, d, generator=gen,
+                             device="cuda").to(dtype)
+            y = kernel.combine(ye, slot, w)
+            torch.cuda.synchronize()
+            want = ref.combine_ref(ye, slot, w).float()
+            # both round each product, then each sum, in k order: f32 within
+            # K 2^-23 sum|w x|, plus one bf16 rounding (2^-8 |y|) in bf16
+            tol = k * 2.0**-23 * ref.combine_ref(ye.float().abs(), slot,
+                                                 w).float()
+            if dtype == torch.bfloat16:
+                tol = tol + 2.0**-8 * want.abs()
+            diff = (y.float() - want).abs()
+            err = diff.max().item()
+            if not (torch.isfinite(y.float()).all()
+                    and bool((diff <= tol).all())):
+                raise AssertionError(f"moe combine {name} {sname}: max abs "
+                                     f"err {err}, worst excess "
+                                     f"{(diff - tol).max().item()}")
+            elt = x.element_size()
+            row = d * elt
+            src = x[tok]                          # library call's operand
+            lib_out = torch.zeros(n_slots, d, dtype=dtype, device="cuda")
+            ye_pad = torch.cat([ye, torch.zeros(1, d, dtype=dtype,
+                                                device="cuda")])
+            bag_idx = torch.where(kept, slot, n_slots).long()
+            w_lib = w.to(dtype)
+            times = {
+                # each token read once, however many of its choices are
+                # kept; its slots; every output row written once
+                "dispatch": (
+                    time_ms(lambda: kernel.dispatch(x, slot, n_slots), flush),
+                    time_ms(lambda: ref.dispatch_ref(x, slot, n_slots),
+                            flush),
+                    time_ms(lambda: lib_out.index_copy_(0, dest, src),
+                            flush),
+                    n_tok_kept * row + t * k * 4 + n_slots * row, 0),
+                "combine": (
+                    time_ms(lambda: kernel.combine(ye, slot, w), flush),
+                    time_ms(lambda: ref.combine_ref(ye, slot, w), flush),
+                    time_ms(lambda: torch.nn.functional.embedding_bag(
+                        bag_idx, ye_pad, per_sample_weights=w_lib,
+                        mode="sum"), flush),
+                    n_kept * row + t * k * 8 + t * row, 2 * n_kept * d)}
+            for kname, (ms, plain_ms, lib_ms, n_bytes, flops) in \
+                    times.items():
+                t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+                t_ops = flops / F32_FLOPS_PER_S * 1e3
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                lib = ("index_copy_ of the pre-gathered kept rows"
+                       if kname == "dispatch" else
+                       "embedding_bag, sum, per-sample weights, drops on a "
+                       "zero row")
+                print(f"phase 10: moe {kname} {name} {sname} (T {t}, K {k}, "
+                      f"D {d}, group {group}, {n_slots} slots, {n_kept} "
+                      f"kept, drop share {drop:.4f}): max abs err "
+                      f"{0.0 if kname == 'dispatch' else err:.3e} "
+                      f"({'bit-identical' if kname == 'dispatch' else 'within one bf16 rounding' if dtype == torch.bfloat16 else 'within K 2^-23 sum|w x|'}) "
+                      f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+                      f"{lib_ms:.4f} ({lib}) bound_ms={bound:.6f} "
+                      f"({n_bytes} bytes, {flops} flops) {by}-bound: "
+                      f"{bound / ms:.1%} of the bound; {card}", flush=True)
+                if sname == "decode" and dtype == torch.bfloat16:
+                    out[f"moe_{kname}"] = dict(
+                        max_abs_err=0.0 if kname == "dispatch" else err,
+                        ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                        bound_by=by, library_ms=lib_ms)
+            del x, xe, ye, y, want, tol, diff, src, lib_out, ye_pad
+    return out
+
+
+class _PlainMoE:
+    """Stands in for the MoE kernel module inside ``ops``: the plain
+    versions, on the same tensors."""
+
+    @staticmethod
+    def dispatch(x, slot, n_slots):
+        from repro_torch.kernels.moe_dispatch import ref
+        return ref.dispatch_ref(x, slot, n_slots)
+
+    @staticmethod
+    def combine(ye, slot, weights):
+        from repro_torch.kernels.moe_dispatch import ref
+        return ref.combine_ref(ye, slot, weights)
+
+
+def serve_logits(cfg, params) -> tuple:
+    """Logits of 8 prefill chunks of 64 tokens (one a slot) and then one
+    decode step of all 8 slots, on a fresh paged cache through the kernel
+    read, under the MoE kernels and then under their plain versions:
+    ((kernel chunk, kernel decode), (plain chunk, plain decode))."""
+    from repro_torch.kernels.moe_dispatch import ops as moe_ops
+    from repro_torch.models import api
+
+    rng = np.random.default_rng(2)
+    chunks = rng.integers(0, cfg.vocab_size, (8, 64))
+    runs = []
+    for module in (None, _PlainMoE()):
+        kernel = moe_ops.kernel
+        if module is not None:
+            moe_ops.kernel = module
+        try:
+            cache = api.init_serve_cache(cfg, slots=8, max_len=128,
+                                         device="cuda")
+            # each slot its own pages (the engine's pool assigns them; a
+            # zero table would send every write to the null page)
+            pps = cache["page_table"].shape[1]
+            cache["page_table"].copy_(torch.arange(
+                1, 1 + 8 * pps, dtype=torch.int32).reshape(8, pps))
+            keys = np.zeros((8, 2), np.uint32)
+            for slot in range(8):
+                _, chunk_logits, _ = api.serve_prefill(
+                    params, chunks[slot], 64, slot, 0.0, keys[0], cache, cfg,
+                    sampling=False, return_logits=True)
+            _, dec_logits, _ = api.serve_decode(
+                params, chunks[:, -1], np.ones(8, bool), np.zeros(8),
+                keys, cache, cfg, attn_read="kernel", sampling=False,
+                return_logits=True)
+            torch.cuda.synchronize()
+            runs.append((chunk_logits.float(), dec_logits.float()))
+        finally:
+            moe_ops.kernel = kernel
+    return runs
+
+
+def phase_moe_logits(cfg, params) -> str:
+    """Kernel vs plain MoE path at one prefill chunk and one decode step:
+    bf16 at the served depth (reported), float32 at 2 layers (gated at
+    1e-4 of the logit std)."""
+    (kc, kd), (pc, pd) = serve_logits(cfg, params)
+    bf16 = max((kc - pc).abs().max().item(), (kd - pd).abs().max().item())
+    std = kd.std().item()
+    print(f"phase 11: bfloat16 {cfg.n_layers} layers, MoE kernels vs plain "
+          f"versions: max abs logit diff {bf16:.3e} over one 64-token "
+          f"prefill chunk and one 8-slot decode step (logit std "
+          f"{std:.4f})", flush=True)
+    return f"{bf16:.3e}"
+
+
+def phase_moe_logits_f32(cfg) -> None:
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params = api_init(cfg2)
+    (kc, kd), (pc, pd) = serve_logits(cfg2, params)
+    del params
+    std = kd.std().item()
+    err = max((kc - pc).abs().max().item(), (kd - pd).abs().max().item())
+    if not (math.isfinite(err) and err <= 1e-4 * std):
+        raise AssertionError(f"float32 MoE kernel vs plain logits differ by "
+                             f"{err} (> 1e-4 x logit std {std})")
+    print(f"phase 11: float32 2 layers, MoE kernels vs plain versions: max "
+          f"abs logit diff {err:.3e} (tol 1e-4 x logit std {std:.4f} = "
+          f"{1e-4 * std:.3e})", flush=True)
+
+
+def ssd_inputs(b, s, h, p, n, gen) -> list:
+    """mamba2's scan operands: x, B, C ~ N(0, 1) in bf16; dt =
+    softplus(N(0, 0.25)) ~ 0.7 as the model's zero-init bias gives; A_log 0
+    (A = -1, its init); D ~ N(0, 1)."""
+    f = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(0.5 * f(b, s, h))
+    return [f(b, s, h, p).to(torch.bfloat16), dt,
+            torch.zeros(h, device="cuda"), f(b, s, n).to(torch.bfloat16),
+            f(b, s, n).to(torch.bfloat16), f(h)]
+
+
+def ssd_bound(b, s, h, p, n) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, flops, bytes) of the chunked scan at the
+    kernel's 64-row chunks: per (batch row, chunk) C.B^T over the causal
+    half, shared by the heads; per head the causal half of att.x and the
+    inter-chunk and state products (2 Q N P flops each).  Bytes: x, B, C
+    (bf16), dt (f32), A_log and D read once, y (f32) written once."""
+    q = 64
+    nc = -(-s // q)
+    pairs = q * (q + 1) // 2
+    flops = b * nc * (2 * pairs * n + h * (2 * pairs * p + 4 * q * n * p))
+    n_bytes = (b * s * h * p * 2 + 2 * b * s * n * 2 + b * s * h * 4
+               + 2 * h * 4 + b * s * h * p * 4)
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, n_bytes)
+
+
+def ssd_gate(y, want) -> float:
+    """Worst |y - want| / (1e-4 |want| + 1e-5 max|want|), elementwise."""
+    tol = 1e-4 * want.abs() + 1e-5 * want.abs().max()
+    return ((y.float() - want).abs() / tol).max().item()
+
+
+def phase_ssd_kernel(flush: torch.Tensor) -> dict:
+    """The SSD kernel against its plain versions at mamba2's head shape
+    and a small one; times against the bound.  Returns the kernels-line
+    numbers."""
+    from repro_torch.kernels.ssd_scan import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as kernel
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    small = ssd_inputs(1, 256, 4, 64, 128, gen)
+    y = kernel.ssd_scan(*small, out_dtype=torch.float32)
+    naive, _ = ref.ssd_ref(*small)
+    worst_small = ssd_gate(y, naive)
+    if not worst_small <= 1.0:
+        raise AssertionError(f"ssd_scan vs the per-token recurrence: "
+                             f"{worst_small:.3f} x the elementwise tol")
+    b, s, h, p, n = 4, 4096, 80, 64, 128
+    args = ssd_inputs(b, s, h, p, n, gen)
+    y = kernel.ssd_scan(*args, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = ref.ssd_chunked_ref(*args, chunk=256)
+    worst = ssd_gate(y, want)
+    err = (y - want).abs().max().item()
+    if not (torch.isfinite(y).all() and worst <= 1.0):
+        raise AssertionError(f"ssd_scan at B {b} x S {s} x H {h} x P {p} x N "
+                             f"{n}: {worst:.3f} x the elementwise tol 1e-4 "
+                             f"|want| + 1e-5 max|want| (max abs err {err})")
+    print(f"phase 12: ssd_scan (bf16 in, f32 y) at B {b} x S {s} x H {h} x "
+          f"P {p} x N {n} against the plain chunked form at chunk 256: max "
+          f"abs err {err:.3e} (max|y| {want.abs().max().item():.3f}), worst "
+          f"{worst:.3f} of the elementwise tol 1e-4 |want| + 1e-5 max|want|;"
+          f" at B 1 x S 256 x H 4 against the per-token recurrence: worst "
+          f"{worst_small:.3f}", flush=True)
+    del want, naive, small
+    ms = time_ms(lambda: kernel.ssd_scan(*args, out_dtype=torch.float32),
+                 flush)
+    plain_ms = time_ms(lambda: ref.ssd_chunked_ref(*args, chunk=64), flush,
+                       iters=10)
+    bound, by, flops, n_bytes = ssd_bound(b, s, h, p, n)
+    print(f"phase 12: ssd_scan ms={ms:.4f} plain_ms={plain_ms:.4f} (the "
+          f"chunked form at the kernel's 64-row chunks, median of 10) "
+          f"library_ms=none bound_ms={bound:.4f} ({flops} flops at "
+          f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s f32, {n_bytes} bytes) "
+          f"{by}-bound: {flops / ms / 1e9:.1f} TFLOP/s = {bound / ms:.1%} "
+          f"of the bound; {card_line()}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def phase_mamba(cfg) -> int:
+    """Full-width, full-depth mamba2-2.7b: prefill at B 4 x S 4,096 (the
+    SSD launch counter set to 0 just before and read just after), then the
+    lockstep decode loop: 32 greedy steps of 8 sequences.  Returns the
+    prefill's ssd_scan launches."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as kernel
+    from repro_torch.models import api
+
+    t0 = time.monotonic()
+    params = api_init(cfg)
+    torch.cuda.synchronize()
+    print(f"phase 13: {cfg.name} at full width and depth ({cfg.n_layers} "
+          f"layers, d {cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} "
+          f"heads of {cfg.ssm_d_head}, N {cfg.ssm_state}, chunk "
+          f"{cfg.ssm_chunk}, vocab {cfg.vocab_size}, {cfg.dtype}): "
+          f"{sum(p.numel() for p in params.parameters())} random parameters "
+          f"drawn in {time.monotonic() - t0:.2f} s", flush=True)
+    b, s = 4, 4096
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (b, s))
+    batch = {"tokens": tokens}
+    with torch.no_grad():
+        api.prefill(params, batch, cfg, device="cuda")     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.ssd_scan.launches = 0
+        t0 = time.perf_counter()
+        logits = api.prefill(params, batch, cfg, device="cuda")
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernel.ssd_scan.launches
+        peak = torch.cuda.max_memory_allocated()
+        again = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            api.prefill(params, batch, cfg, device="cuda")
+            torch.cuda.synchronize()
+            again.append((time.perf_counter() - t0) * 1e3)
+    if launches != cfg.n_layers:
+        raise AssertionError(f"ssd_scan launched {launches} times in one "
+                             f"prefill of {cfg.n_layers} layers")
+    if not (torch.isfinite(logits).all()
+            and logits.shape == (b, cfg.vocab_size)):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    ms = [prefill_ms] + again
+    print(f"phase 13: prefill B {b} x S {s}: ms {[round(x, 1) for x in ms]} "
+          f"(median {statistics.median(ms):.1f}) = "
+          f"{b * s / statistics.median(ms) * 1e3:.1f} tokens/s; ssd_scan "
+          f"launches {launches} = {cfg.n_layers} layers; logits finite, "
+          f"std {logits.std().item():.4f}; peak memory "
+          f"{peak / 2**30:.3f} GiB; {card_line()}", flush=True)
+
+    cache = api.init_cache(cfg, 8, 256)
+    tok = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (8, 1)), dtype=torch.int32, device="cuda")
+    step_ms, seq = [], [tok]
+    for _ in range(32):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lo, cache = api.decode(params, tok, cache, cfg)
+        tok = lo.argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        seq.append(tok)
+    if cache["pos"] != 32 or not torch.isfinite(lo).all():
+        raise AssertionError(f"lockstep decode: position {cache['pos']}, "
+                             f"finite {bool(torch.isfinite(lo).all())}")
+    steady = step_ms[1:]
+    print(f"phase 13: lockstep decode (api.init_cache(cfg, 8, 256), 32 "
+          f"greedy api.decode steps): ms per token mean "
+          f"{statistics.mean(steady):.2f} (steps 1-31; min {min(steady):.2f},"
+          f" max {max(steady):.2f}; step 0 {step_ms[0]:.2f}); position "
+          f"{cache['pos']}; first sequence "
+          f"{torch.cat(seq, 1)[0, :12].tolist()}", flush=True)
+    gap, std = prefill_vs_decode(cfg, params, 512)
+    print(f"phase 13: bfloat16 {cfg.n_layers} layers, prefill vs 512 decode "
+          f"steps: last-position max abs logit diff {gap:.3e} (logit std "
+          f"{std:.4f}), reported without a bound", flush=True)
+    del params, cache
+    cfg4 = dataclasses.replace(cfg, n_layers=4, dtype="float32")
+    params4 = api_init(cfg4)
+    gap, std = prefill_vs_decode(cfg4, params4, 512)
+    del params4
+    if not (math.isfinite(gap) and gap <= 1e-3 * std):
+        raise AssertionError(f"float32 prefill vs decode: last logits differ "
+                             f"by {gap} (> 1e-3 x logit std {std})")
+    print(f"phase 13: float32 4 layers, prefill (two 256-row chunks carry "
+          f"the state) vs 512 decode steps: last-position max abs logit "
+          f"diff {gap:.3e} (tol 1e-3 x logit std {std:.4f} = "
+          f"{1e-3 * std:.3e})", flush=True)
+    return launches
+
+
+def prefill_vs_decode(cfg, params, s: int) -> tuple[float, float]:
+    """Last-position logits of one ``s``-token prompt by prefill and by
+    ``s`` lockstep decode steps: (max abs diff, logit std)."""
+    from repro_torch.models import api
+
+    prompt = np.random.default_rng(5).integers(0, cfg.vocab_size, (1, s))
+    with torch.no_grad():
+        want = api.prefill(params, {"tokens": prompt}, cfg, device="cuda")
+        cache = api.init_cache(cfg, 1, s)
+        for t in range(s):
+            lo, cache = api.decode(params, prompt[:, t:t + 1], cache, cfg)
+    return (lo - want).abs().max().item(), want.std().item()
+
+
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
     from repro_torch.models import api
@@ -989,7 +1430,7 @@ def main() -> int:
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
           f"{cfg.dtype}): {n_params} random parameters drawn in "
           f"{time.monotonic() - t0:.2f} s", flush=True)
-    launches = phase_serve(cfg, params)
+    launches = phase_serve(cfg, params)["paged_attention"]
     phase_reads(cfg, params)
     del params
 
@@ -1013,6 +1454,33 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
     flash_launches = phase_train(cfg)
+    torch.cuda.empty_cache()
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    moe_times = phase_moe_kernels(flush)
+    ssd = phase_ssd_kernel(flush)
+    del flush
+    torch.cuda.empty_cache()
+
+    dbrx = dataclasses.replace(registry.get("dbrx-132b"),
+                               n_layers=DBRX_LAYERS)
+    t0 = time.monotonic()
+    params = api_init(dbrx)
+    torch.cuda.synchronize()
+    print(f"phase 11: {dbrx.name} at full width, {dbrx.n_layers} of its 40 "
+          f"layers (d {dbrx.d_model}, heads {dbrx.n_heads}/"
+          f"{dbrx.n_kv_heads}, d_head {dbrx.head_dim}, {dbrx.n_experts} "
+          f"experts top-{dbrx.top_k} of d_ff {dbrx.d_ff}, vocab "
+          f"{dbrx.vocab_size}, {dbrx.dtype}): "
+          f"{sum(p.numel() for p in params.parameters())} random parameters "
+          f"drawn in {time.monotonic() - t0:.2f} s", flush=True)
+    moe_launches = phase_serve(dbrx, params, phase="11")
+    phase_moe_logits(dbrx, params)
+    del params
+    torch.cuda.empty_cache()
+    phase_moe_logits_f32(dbrx)
+    torch.cuda.empty_cache()
+    ssd_launches = phase_mamba(registry.get("mamba2-2.7b"))
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1031,6 +1499,14 @@ def main() -> int:
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": flash_launches, **flash})
+    for name, line in (("moe_dispatch", 45), ("moe_combine", 106)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": MOE_SOURCE,
+            "replaces": f"{MOE_REPLACES}:{line}",
+            "launches": moe_launches[name], **moe_times[name]})
+    kernels.append({
+        "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
+        "replaces": SSD_REPLACES, "launches": ssd_launches, **ssd})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,9 @@ SOURCES = {
     / "gather_runahead.cu",
     "flash_attention": KERNELS_DIR / "flash_attention" / "csrc"
     / "flash_attention.cu",
+    "moe_dispatch": KERNELS_DIR / "moe_dispatch" / "csrc"
+    / "moe_dispatch.cu",
+    "ssd_scan": KERNELS_DIR / "ssd_scan" / "csrc" / "ssd_scan.cu",
     "cache_grid": KERNELS_DIR.parent / "core" / "cgra" / "csrc"
     / "cache_grid.cu",
 }

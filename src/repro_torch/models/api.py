@@ -1,9 +1,9 @@
-"""Model API: parameter init, the training loss, prefill and the serve
-dispatchers.
+"""Model API: parameter init, the training loss, prefill, the legacy
+lockstep decode and the serve dispatchers.
 
-The twin of ``repro.models.api`` for the dense family; the legacy-decode
-and encoder-decoder entry points, and the MoE and SSM families, wait for
-later slices of the port.
+The twin of ``repro.models.api`` for the LM family (dense, MoE, hybrid and
+SSM archs); the encoder-decoder family waits for a later slice of the port.
+Entry points run on the CUDA card unless ``device="cpu"`` is passed.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ def batch_to(batch: dict, device=None) -> dict:
 # training / prefill
 # ---------------------------------------------------------------------------
 
-def _dense_only(cfg: ModelConfig) -> None:
+def _no_encdec(cfg: ModelConfig) -> None:
     if cfg.family == "encdec":
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models are "
                                   f"not ported yet")
@@ -45,7 +45,7 @@ def train_loss(params, batch: dict, cfg: ModelConfig, *,
                device=None) -> torch.Tensor:
     """Scalar training loss of ``batch`` (moved to ``device``, the card
     when None)."""
-    _dense_only(cfg)
+    _no_encdec(cfg)
     return lm.lm_loss(params, batch_to(batch, device), cfg,
                       attn_impl=cfg.attn_impl)
 
@@ -53,9 +53,30 @@ def train_loss(params, batch: dict, cfg: ModelConfig, *,
 def prefill(params, batch: dict, cfg: ModelConfig, *,
             device=None) -> torch.Tensor:
     """Last-position logits [B, V] float32 of ``batch``."""
-    _dense_only(cfg)
+    _no_encdec(cfg)
     return lm.prefill_logits(params, batch_to(batch, device), cfg,
                              attn_impl=cfg.attn_impl)
+
+
+# ---------------------------------------------------------------------------
+# legacy lockstep decode (one shared position for the whole batch)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *, device=None):
+    """Zeroed decode state for ``batch`` sequences of up to ``seq_len``
+    tokens, on ``device`` (the card when None)."""
+    _no_encdec(cfg)
+    return lm.init_decode_cache(cfg, batch, seq_len, resolve_device(device))
+
+
+def decode(params, tokens, cache, cfg: ModelConfig):
+    """One lockstep step: tokens [B, 1] (a tensor or host array) ->
+    (logits [B, V] float32, cache), the cache updated in place on its own
+    device."""
+    _no_encdec(cfg)
+    device = next(iter(cache["layers"][0].values())).device
+    return lm.decode_step(params, torch.as_tensor(tokens, device=device),
+                          cache, cfg)
 
 
 # ---------------------------------------------------------------------------

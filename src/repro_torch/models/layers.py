@@ -1,6 +1,7 @@
 """Layer library: norms, RoPE, the SwiGLU MLP and GQA attention (over a
-cache with per-row positions for serving; reference and blocked attention
-over the whole sequence for training and prefill).
+cache with per-row positions for serving, or one shared position for the
+legacy decode; reference and blocked attention over the whole sequence for
+training and prefill).
 
 Parameters live in small ``nn.Module``s (:class:`Norm`, :class:`Attention`,
 :class:`MLP`) holding the same leaves, shapes and dtypes as the JAX
@@ -181,12 +182,14 @@ def _merge_heads(p: Attention, y: torch.Tensor) -> torch.Tensor:
     return y.transpose(1, 2).reshape(b, s, h * d) @ p.wo
 
 
-def cache_attention(q, k_cache, v_cache, k_positions, q_positions):
+def cache_attention(q, k_cache, v_cache, k_positions, q_positions,
+                    window: int | None = None):
     """Attention of ``q`` [B,Hq,C,D] against a cache [B,Hkv,S,D] with
     *per-row* positions: ``k_positions`` [1|B, S] holds each cache slot's
     absolute position (-1 = empty), ``q_positions`` [1|B, C] each query's.
-    A cache slot takes part iff its position is in [0, q_position], so rows
-    at different decode depths share one batched product.
+    A cache slot takes part iff its position is in [0, q_position] (and
+    inside the sliding window when given), so rows at different decode
+    depths share one batched product.
 
     Scores and softmax run in float32 (the reference's
     ``preferred_element_type``); the probabilities are cast to the cache's
@@ -203,10 +206,23 @@ def cache_attention(q, k_cache, v_cache, k_positions, q_positions):
     kp = k_positions[:, None, None, None, :]       # [1|B,1,1,1,S]
     qp = q_positions[:, None, None, :, None]       # [1|B,1,1,C,1]
     valid = (kp >= 0) & (kp <= qp)
+    if window is not None:
+        valid &= qp - kp < window
     s = s.masked_fill(~valid, -math.inf)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     y = torch.matmul(p.reshape(b, hkv, rep * c, s_len), v_cache)
     return y.reshape(b, hq, c, d)
+
+
+def decode_attention(q, k_cache, v_cache, k_positions, *, pos: int,
+                     window: int | None = None) -> torch.Tensor:
+    """Single-token decode: q [B,Hq,1,D] against a (possibly ring) cache
+    [B,Hkv,S,D] at one shared position ``pos`` (the legacy serve path; the
+    continuous-batching engine calls :func:`cache_attention` with per-slot
+    positions directly)."""
+    return cache_attention(q, k_cache, v_cache, k_positions[None, :],
+                           torch.full((1, 1), pos, device=q.device),
+                           window=window)
 
 
 def reference_attention(q, k, v, *, causal: bool, window: int | None = None):

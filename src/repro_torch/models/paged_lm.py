@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from . import layers
-from .lm import LM, _lm_head
+from .lm import LM, _ffn, _lm_head
 from .types import ModelConfig
 
 NULL_PAGE = 0  # physical page 0 is reserved: idle page-table entries point here
@@ -54,8 +54,6 @@ def serve_supported(cfg: ModelConfig) -> tuple[bool, str]:
         return False, "sliding-window ring caches do not page"
     if cfg.kv_quant:
         return False, "int8 KV paging (scale pages) not implemented"
-    if any(spec.ffn == "moe" for spec in cfg.pattern()):
-        return False, "MoE FFNs are not ported yet"
     return True, ""
 
 
@@ -261,11 +259,10 @@ def _attn_prefill(p, x, c, cache, slot: int, positions, write_mask,
 # ---------------------------------------------------------------------------
 
 def _block(p, x, attn_fn, cfg: ModelConfig) -> torch.Tensor:
+    """One layer.  An MoE FFN routes every row of x, as the reference's
+    does: in decode the inactive slots too, so capacity counts them."""
     h = layers.apply_norm(p.mixer_norm, x, cfg)
-    x = x + attn_fn(p.attn, h)
-    if p.mlp is not None:
-        h = layers.apply_norm(p.ffn_norm, x, cfg)
-        x = x + layers.apply_mlp(p.mlp, h)
+    x, _ = _ffn(p, x + attn_fn(p.attn, h), cfg)
     return x
 
 

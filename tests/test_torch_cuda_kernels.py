@@ -8,9 +8,13 @@ These need the card and skip without one.  On the card:
 here the shapes reach the corners the full sizes do not: rows of more
 than 32 chunks of 16 bytes, fan-ins over 32, block_rows that are no
 multiple of the warps of a block, depths clamped by the item count, a
-grid with more sets than ways, addresses that wrap in int32, and
-attention tiles that the causal diagonal, the window, the tail or a query
-offset cut.
+grid with more sets than ways, addresses that wrap in int32, attention
+tiles that the causal diagonal, the window, the tail or a query offset
+cut, MoE dispatch and combine at T = 1, K = 1 and 8, and with every choice
+dropped, and SSD scans of one chunk, one head, a ragged last chunk and
+4,096 rows whose decay exponents would overflow above the diagonal.  The
+last cases run the MoE and SSM model paths on the card and count their
+launches.
 """
 import numpy as np
 import pytest
@@ -241,3 +245,227 @@ def test_blocked_attention_grads_on_the_card(card, triangular, window):
         grads.append([a.grad.float() for a in args])
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 2e-4
+
+
+# ---------------------------------------------------------------------------
+# MoE dispatch / combine
+# ---------------------------------------------------------------------------
+
+def _slots(rng, t, k, n_slots, drop):
+    """Distinct kept slots for a share of the T x K choices, -1 the rest."""
+    flat = np.full(t * k, -1, np.int32)
+    n_keep = min(n_slots, int(round(t * k * (1 - drop))))
+    flat[rng.choice(t * k, size=n_keep, replace=False)] = \
+        rng.permutation(n_slots)[:n_keep]
+    return flat.reshape(t, k)
+
+
+@pytest.mark.parametrize("t,k,d,dtype,n_slots,drop", [
+    (1, 1, 6144, torch.bfloat16, 4, 0.0),      # T = 1
+    (8, 4, 6144, torch.bfloat16, 64, 0.1),     # dbrx decode shape
+    (64, 4, 6144, torch.bfloat16, 320, 0.3),   # dbrx prefill chunk
+    (33, 1, 4, torch.float32, 40, 0.5),        # K = 1; one 16-byte chunk
+    (20, 2, 200, torch.float32, 30, 1.0),      # every choice dropped
+    (17, 8, 96, torch.float32, 100, 0.4),      # K = 8, rows of 24 chunks
+])
+def test_dispatch_is_bit_identical(card, t, k, d, dtype, n_slots, drop):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
+    from repro_torch.kernels.moe_dispatch import ref as moe_ref
+
+    rng = np.random.default_rng(t)
+    x = _table(t, d, dtype, 1, card)
+    slot = torch.from_numpy(_slots(rng, t, k, n_slots, drop)).to(card)
+    for s in ((slot, slot[:, 0].contiguous()) if k == 1 else (slot,)):
+        before = moe_kernel.dispatch.launches
+        out = moe_kernel.dispatch(x, s, n_slots)
+        torch.cuda.synchronize()
+        assert moe_kernel.dispatch.launches == before + 1
+        assert torch.equal(_bits(out), _bits(moe_ref.dispatch_ref(x, s,
+                                                                  n_slots)))
+
+
+@pytest.mark.parametrize("t,k,d,dtype,drop", [
+    (1, 4, 6144, torch.bfloat16, 0.0),         # T = 1
+    (8, 4, 6144, torch.bfloat16, 0.2),         # dbrx decode shape
+    (63, 4, 6144, torch.float32, 0.3),         # rows of 1,536 chunks
+    (40, 1, 128, torch.bfloat16, 0.1),         # K = 1
+    (17, 8, 96, torch.float32, 0.5),           # K = 8, rows of 24 chunks
+    (12, 2, 64, torch.bfloat16, 1.0),          # every choice dropped
+])
+def test_combine_within_one_rounding(card, t, k, d, dtype, drop):
+    """Against the plain version that sums in the kernel's order: float32
+    by at most K 2^-23 sum|w x| (the kernel and the plain version both
+    round each product, then each sum), bfloat16 within one more bf16
+    rounding (2^-8 of the value)."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
+    from repro_torch.kernels.moe_dispatch import ref as moe_ref
+
+    rng = np.random.default_rng(k)
+    n_slots = max(1, t * k)
+    ye = _table(n_slots, d, dtype, 2, card)
+    slot = torch.from_numpy(_slots(rng, t, k, n_slots, drop)).to(card)
+    w = torch.from_numpy(rng.random((t, k)).astype(np.float32)).to(card)
+    out = moe_kernel.combine(ye, slot, w)
+    torch.cuda.synchronize()
+    want = moe_ref.combine_ref(ye, slot, w).float()
+    tol = k * 2.0**-23 * moe_ref.combine_ref(ye.float().abs(), slot,
+                                             w.abs()).float()
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0**-8 * want.abs()
+    assert out.dtype == dtype and out.shape == (t, d)
+    assert bool(((out.float() - want).abs() <= tol).all())
+    if drop == 1.0:
+        assert out.abs().max().item() == 0.0
+
+
+def test_moe_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
+
+    x = _table(4, 64, torch.bfloat16, 0, card)
+    slot = torch.zeros(4, 2, dtype=torch.int32, device=card)
+    w = torch.ones(4, 2, device=card)
+    before = (moe_kernel.dispatch.launches, moe_kernel.combine.launches)
+    with pytest.raises(ValueError, match="int32"):
+        moe_kernel.dispatch(x, slot.long(), 8)
+    with pytest.raises(ValueError, match="16"):
+        moe_kernel.dispatch(_table(4, 6, torch.float32, 0, card), slot, 8)
+    with pytest.raises(ValueError, match="fan-in"):
+        moe_kernel.dispatch(x, torch.zeros(4, 9, dtype=torch.int32,
+                                           device=card), 8)
+    with pytest.raises(ValueError, match="fan-in"):
+        moe_kernel.combine(x, torch.zeros(4, 9, dtype=torch.int32,
+                                          device=card),
+                           torch.ones(4, 9, device=card))
+    with pytest.raises(ValueError, match="float32 weights"):
+        moe_kernel.combine(x, slot, w.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_kernel.combine(x.cpu(), slot.cpu(), w.cpu())
+    assert (moe_kernel.dispatch.launches,
+            moe_kernel.combine.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(b, s, h, p, n, dtype, device, seed=0, a_log=None):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.from_numpy(
+        rng.normal(size=shape).astype(np.float32))
+    dt = torch.nn.functional.softplus(0.5 * f(b, s, h))      # ~0.7, as init
+    a = (torch.zeros(h) if a_log is None else
+         torch.from_numpy(rng.uniform(*a_log, h).astype(np.float32)))
+    xs = [f(b, s, h, p).to(dtype), dt, a, f(b, s, n).to(dtype),
+          f(b, s, n).to(dtype), f(h)]
+    return [t.to(device) for t in xs]
+
+
+def _ssd_gate(y, want):
+    """Elementwise relative: |dy| <= 1e-4 |want| + 1e-5 max|want|."""
+    tol = 1e-4 * want.abs() + 1e-5 * want.abs().max()
+    return ((y.float() - want).abs() / tol).max().item()
+
+
+@pytest.mark.parametrize("b,s,h,p,n,dtype,out", [
+    (1, 64, 1, 8, 16, torch.float32, torch.float32),    # one chunk, H = 1
+    (2, 100, 3, 8, 16, torch.float32, torch.float32),   # ragged last chunk
+    (2, 256, 4, 64, 128, torch.bfloat16, torch.float32),  # mamba2's head
+    (1, 192, 2, 128, 128, torch.bfloat16, torch.float32),  # jamba's head
+    (2, 128, 4, 16, 8, torch.float32, torch.float32),   # test_kernels' shape
+    (2, 128, 4, 16, 8, torch.bfloat16, torch.bfloat16),
+])
+def test_ssd_scan_matches_the_plain_versions(card, b, s, h, p, n, dtype,
+                                             out):
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
+
+    args = _ssd_inputs(b, s, h, p, n, dtype, card, a_log=(-1, 0.3))
+    before = ssd_kernel.ssd_scan.launches
+    y = ssd_kernel.ssd_scan(*args, out_dtype=out)
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan.launches == before + 1
+    assert y.dtype == out and y.shape == (b, s, h, p)
+    chunked = ssd_ref.ssd_chunked_ref(*args, chunk=64)
+    naive, _ = ssd_ref.ssd_ref(*args)
+    if out == torch.bfloat16:   # one bf16 rounding of y
+        for want in (chunked, naive):
+            assert bool(((y.float() - want).abs()
+                         <= 2.0**-8 * want.abs() + 1e-4).all())
+    else:
+        assert _ssd_gate(y, chunked) <= 1.0
+        assert _ssd_gate(y, naive) <= 1.0
+
+
+def test_ssd_scan_masks_before_the_exponential(card):
+    """dt ~ 0.7 and A = -1 over 4,096 rows: the exponent above the
+    diagonal reaches ~45 in a 64-row chunk and cum ~ -2,900 at the end;
+    y stays finite and equal to the plain version at chunk 256 (exponents
+    to ~180, masked before exp)."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
+
+    args = _ssd_inputs(1, 4096, 2, 64, 128, torch.bfloat16, card)
+    y = ssd_kernel.ssd_scan(*args, out_dtype=torch.float32)
+    want = ssd_ref.ssd_chunked_ref(*args, chunk=256)
+    assert torch.isfinite(y).all()
+    assert _ssd_gate(y, want) <= 1.0
+
+
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(card):
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
+
+    args = _ssd_inputs(1, 64, 2, 8, 16, torch.float32, card)
+    before = ssd_kernel.ssd_scan.launches
+    with pytest.raises(ValueError, match="1..128"):
+        ssd_kernel.ssd_scan(*_ssd_inputs(1, 64, 1, 256, 16, torch.float32,
+                                         card))
+    with pytest.raises(ValueError, match="one dtype"):
+        ssd_kernel.ssd_scan(args[0], args[1], args[2],
+                            args[3].to(torch.bfloat16), args[4], args[5])
+    with pytest.raises(ValueError, match="float32"):
+        ssd_kernel.ssd_scan(args[0], args[1].double(), *args[2:])
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_kernel.ssd_scan(*[a.cpu() for a in args])
+    assert ssd_kernel.ssd_scan.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the model paths reach the kernels on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b"])
+def test_model_paths_launch_the_kernels(card, arch):
+    """Prefill and legacy decode of the smoke arch on the card launch the
+    MoE and SSD kernels and agree with the same model on the CPU (float32:
+    1e-3, kernel and plain version sum in other orders)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
+    from repro_torch.models import api
+
+    cfg = dataclasses.replace(registry.smoke(arch), dtype="float32")
+    cpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu") \
+        .to(card)
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                            (2, 32)).astype(np.int32)
+    counters = (moe_kernel.dispatch, moe_kernel.combine, ssd_kernel.ssd_scan)
+    before = [f.launches for f in counters]
+    with torch.no_grad():
+        want = api.prefill(cpu, {"tokens": tok}, cfg, device="cpu")
+        got = api.prefill(gpu, {"tokens": tok}, cfg, device=card)
+        torch.cuda.synchronize()
+        assert (got.cpu() - want).abs().max().item() <= 1e-3
+        caches = [api.init_cache(cfg, 2, 8, device=d) for d in ("cpu", card)]
+        for t in range(4):
+            lo = [api.decode(m, tok[:, t:t + 1], c, cfg)[0]
+                  for m, c in ((cpu, caches[0]), (gpu, caches[1]))]
+            assert (lo[1].cpu() - lo[0]).abs().max().item() <= 1e-3
+    moved = [f.launches - b for f, b in zip(counters, before)]
+    has_moe = any(s.ffn == "moe" for s in cfg.pattern())
+    has_ssm = any(s.mixer == "ssm" for s in cfg.pattern())
+    assert (moved[0] > 0 and moved[1] > 0) == has_moe
+    assert (moved[2] > 0) == has_ssm

@@ -20,9 +20,11 @@ from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.gather_runahead import gather_runahead as gather_kernel
 from repro_torch.kernels.gather_runahead import ops as gather_ops
+from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
+from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention import paged_attention as kernel
-from repro_torch.launch import steps, train_lm
+from repro_torch.launch import serve_lm, steps, train_lm
 from repro_torch.models import api, layers
 from repro_torch.serve import ServeEngine
 
@@ -184,11 +186,80 @@ def test_profiler_defaults_to_the_card(monkeypatch):
 def test_build_flags_target_hopper():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert set(_build.SOURCES) == {"paged_attention", "gather_runahead",
-                                   "cache_grid", "flash_attention"}
+                                   "cache_grid", "flash_attention",
+                                   "moe_dispatch", "ssd_scan"}
     for name, src in _build.SOURCES.items():
         assert src.exists() and src.suffix == ".cu", name
         assert _build.library_path(name).parent == \
             ROOT / "build" / "kernels"
+
+
+def _moe_ssm_counts():
+    return [f.launches for f in (moe_kernel.dispatch, moe_kernel.combine,
+                                 ssd_kernel.ssd_scan)]
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-2.7b",
+                                  "jamba-1.5-large-398b"])
+def test_moe_and_ssm_on_the_cpu_never_build_or_launch(monkeypatch, arch):
+    """The MoE and SSM layers take the plain versions for CPU tensors in
+    training (forward and grads), prefill, the legacy decode and, for the
+    MoE arch, the serve engine: nothing is built and no launch counter
+    moves."""
+    def refuse(*a, **k):
+        raise AssertionError("a CPU call must not build a kernel")
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "_nvcc", refuse)
+    before = _moe_ssm_counts()
+    cfg = registry.smoke(arch)
+    opt = steps.make_optimizer(cfg)
+    state = train_lm.init_state(cfg, opt, "cpu")
+    batch = {"tokens": np.ones((8, 16), np.int32),    # accum_steps | 8
+             "labels": np.ones((8, 16), np.int32)}
+    _, metrics = steps.train_step(state, batch, cfg, opt, device="cpu")
+    assert np.isfinite(metrics["loss"].item())
+    params = state["params"]
+    assert api.prefill(params, batch, cfg, device="cpu").shape == \
+        (8, cfg.vocab_size)
+    cache = api.init_cache(cfg, 2, 8, device="cpu")
+    logits, _ = api.decode(params, np.ones((2, 1), np.int32), cache, cfg)
+    assert logits.shape == (2, cfg.vocab_size)
+    if api.serve_supported(cfg)[0]:
+        eng = ServeEngine(cfg, params, slots=2, max_len=32, prefill_chunk=8,
+                          device="cpu")
+        eng.submit([1, 2, 3], max_new_tokens=3)
+        eng.run()
+        eng.assert_no_leaks()
+    assert _moe_ssm_counts() == before
+
+
+@pytest.mark.parametrize("wrapper", [
+    lambda: moe_kernel.dispatch(torch.zeros(4, 8),
+                                torch.zeros(4, dtype=torch.int32), 4),
+    lambda: moe_kernel.combine(torch.zeros(4, 8),
+                               torch.zeros(4, 2, dtype=torch.int32),
+                               torch.ones(4, 2)),
+    lambda: ssd_kernel.ssd_scan(torch.zeros(1, 4, 2, 8), torch.ones(1, 4, 2),
+                                torch.zeros(2), torch.zeros(1, 4, 4),
+                                torch.zeros(1, 4, 4), torch.ones(2)),
+], ids=["moe_dispatch", "moe_combine", "ssd_scan"])
+def test_moe_and_ssd_wrappers_refuse_cpu_tensors(wrapper):
+    before = _moe_ssm_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper()
+    assert _moe_ssm_counts() == before
+
+
+def test_serving_and_decode_entry_points_default_to_the_card(monkeypatch):
+    """With no device, serve_lm (both modes) and api.init_cache want CUDA
+    and raise without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["--arch", "dbrx-132b"], ["--arch", "mamba2-2.7b",
+                                           "--legacy"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_lm.main(argv)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.init_cache(registry.smoke("mamba2-2.7b"), 1, 8)
 
 
 def test_configs_are_the_references():

@@ -357,8 +357,9 @@ def test_unsupported_arch_rejected(setup):
     assert not ok and "int8" in why
     with pytest.raises(ValueError):
         ServeEngine(bad, params, slots=2, max_len=32, device="cpu")
-    ok, why = api.serve_supported(registry.smoke("dbrx-132b"))
-    assert not ok and "MoE" in why
+    ok, why = api.serve_supported(registry.smoke("mamba2-2.7b"))
+    assert not ok and "attention mixers only" in why
+    assert api.serve_supported(registry.smoke("dbrx-132b")) == (True, "")
 
 
 def test_chaos_backpressure_rejects_deterministically(setup):
