@@ -7,9 +7,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 
 1. require a CUDA card; print its name and power limit; turn TF32 off;
 2. build the hand-written kernels from ``src/repro_torch/kernels/*/csrc``;
-3. hold each kernel against its plain PyTorch version on the card at the
-   decode shapes of the main path, and time kernel, plain version and a
-   library yardstick;
+3. hold the paged-attention kernel against its plain PyTorch version and,
+   elementwise, its kernel-order split version on the card at the decode
+   shapes of the main path and at 8 rows of 4,096 tokens, and time kernel,
+   plain version and a library yardstick against the bytes bound;
 4. serve full-width qwen2-1.5b (random weights from a seed) through
    ``repro_torch.serve.ServeEngine``: 12 requests on 8 slots, checking
    completion, page accounting and that every decode step's attention went
@@ -145,78 +146,138 @@ def time_ms(fn, flush: torch.Tensor, iters: int = 50) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
+def graph_ms(fn, flush: torch.Tensor, iters: int = 50) -> float:
+    """Median device milliseconds of one call replayed from a CUDA graph,
+    L2 overwritten before each (``time_ms``).  The host's enqueue of the
+    call is not timed: for a call of a few microseconds an eager call's
+    events time mostly the Python wrapper, the flush notwithstanding."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    return time_ms(graph.replay, flush, iters)
+
+
+def split_gate(out, args, n_split: int) -> float:
+    """Worst ratio of |kernel - split plain version| to its tolerance: the
+    two differ by float32 summation order only, which can move the
+    output's rounding by an ulp (2^-7 |y| in bf16, 2^-20 |y| in f32); 1e-5
+    absolute beside it."""
+    from repro_torch.kernels.paged_attention import ref
+
+    want = ref.paged_attention_split(*args, n_split).float()
+    ulp = 2.0 ** -7 if out.dtype == torch.bfloat16 else 2.0 ** -20
+    return ((out.float() - want).abs()
+            / (ulp * want.abs() + 1e-5)).max().item()
+
+
 def phase_kernel(flush: torch.Tensor) -> dict:
     from repro_torch.kernels.paged_attention import paged_attention as kernel
     from repro_torch.kernels.paged_attention import ref
 
-    b, h, d, page, pps = 8, 12, 128, 16, 32
-    n_pages = 1 + b * pps
-    lengths_list = [0, 1, 15, 16, 17, 255, 511, 512]
+    b, h, d, page = 8, 12, 128, 16
+    # (name, pages a row, lengths): the serving path's table and lengths;
+    # 8 rows of 4,096 tokens, where the old single-block rows ran 256 pages
+    # one after another on one SM each
+    shapes = [("decode", 32, [0, 1, 15, 16, 17, 255, 511, 512]),
+              ("long-context", 256, [4096] * b)]
     gen = torch.Generator(device="cuda").manual_seed(1)
-    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[:b * pps]
-             + 1).reshape(b, pps).to(torch.int32)
-    lengths = torch.tensor(lengths_list, dtype=torch.int32, device="cuda")
     results = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for hkv in (2, h):
-            q = torch.randn(b, h, d, generator=gen, device="cuda").to(dtype)
-            kp = torch.randn(n_pages, page, hkv, d, generator=gen,
-                             device="cuda").to(dtype)
-            vp = torch.randn(n_pages, page, hkv, d, generator=gen,
-                             device="cuda").to(dtype)
-            args = (q, kp, vp, table, lengths)
-            out = kernel.paged_attention(*args)
-            torch.cuda.synchronize()
-            plain = ref.paged_attention_ref(*args)
-            err = (out.float() - plain.float()).abs().max().item()
-            if not torch.isfinite(out.float()).all() or err > TOL[dtype]:
-                raise AssertionError(f"paged_attention {dtype} Hkv={hkv}: max "
-                                     f"abs err {err} > {TOL[dtype]}")
-            if out[0].abs().max().item() != 0.0:
-                raise AssertionError("paged_attention: zero-length row is "
-                                     "not zero")
-            # the library yardstick: SDPA over KV already gathered dense
-            # (the gather is not timed); the port never calls SDPA
-            kd = kp[table.long()].reshape(b, pps * page, hkv, d) \
-                .transpose(1, 2).contiguous()
-            vd = vp[table.long()].reshape(b, pps * page, hkv, d) \
-                .transpose(1, 2).contiguous()
-            mask = (torch.arange(pps * page, device="cuda")[None, :]
-                    < lengths[:, None])[:, None, None, :]
-            q4 = q[:, :, None, :]
+    for sname, pps, lengths_list in shapes:
+        n_pages = 1 + b * pps
+        table = (torch.randperm(n_pages - 1, generator=gen,
+                                device="cuda")[:b * pps]
+                 + 1).reshape(b, pps).to(torch.int32)
+        lengths = torch.tensor(lengths_list, dtype=torch.int32,
+                               device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            for hkv in ((2, h) if sname == "decode" else (2,)):
+                q = torch.randn(b, h, d, generator=gen,
+                                device="cuda").to(dtype)
+                kp = torch.randn(n_pages, page, hkv, d, generator=gen,
+                                 device="cuda").to(dtype)
+                vp = torch.randn(n_pages, page, hkv, d, generator=gen,
+                                 device="cuda").to(dtype)
+                args = (q, kp, vp, table, lengths)
+                n_split = kernel.n_splits(b, hkv, pps, page)
+                out = kernel.paged_attention(*args)
+                torch.cuda.synchronize()
+                plain = ref.paged_attention_ref(*args)
+                err = (out.float() - plain.float()).abs().max().item()
+                if not torch.isfinite(out.float()).all() \
+                        or err > TOL[dtype]:
+                    raise AssertionError(
+                        f"paged_attention {dtype} Hkv={hkv} {sname}: max "
+                        f"abs err {err} > {TOL[dtype]}")
+                worst = split_gate(out, args, n_split)
+                if not worst <= 1.0:
+                    raise AssertionError(
+                        f"paged_attention {dtype} Hkv={hkv} {sname}: "
+                        f"differs from the split plain version by "
+                        f"{worst:.3f} x its elementwise tolerance")
+                for i, n in enumerate(lengths_list):
+                    if n == 0 and out[i].abs().max().item() != 0.0:
+                        raise AssertionError("paged_attention: zero-length "
+                                             "row is not zero")
+                del plain
+                # the library yardstick: SDPA over KV already gathered
+                # dense (the gather is not timed); the port never calls it
+                kd = kp[table.long()].reshape(b, pps * page, hkv, d) \
+                    .transpose(1, 2).contiguous()
+                vd = vp[table.long()].reshape(b, pps * page, hkv, d) \
+                    .transpose(1, 2).contiguous()
+                mask = (torch.arange(pps * page, device="cuda")[None, :]
+                        < lengths[:, None])[:, None, None, :]
+                q4 = q[:, :, None, :]
 
-            def sdpa():
-                return torch.nn.functional.scaled_dot_product_attention(
-                    q4, kd, vd, attn_mask=mask, enable_gqa=hkv != h)
+                def sdpa():
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        q4, kd, vd, attn_mask=mask, enable_gqa=hkv != h)
 
-            ms = time_ms(lambda: kernel.paged_attention(*args), flush)
-            warm_ms = time_ms(lambda: kernel.paged_attention(*args),
-                              torch.empty(0, device="cuda"))
-            plain_ms = time_ms(lambda: ref.paged_attention_ref(*args), flush)
-            library_ms = time_ms(sdpa, flush)
-            elt = q.element_size()
-            tokens = sum(min(n, pps * page) for n in lengths_list)
-            pages_read = sum(-(-min(n, pps * page) // page)
-                             for n in lengths_list)
-            n_bytes = (tokens * hkv * d * 2 * elt + 2 * q.numel() * elt
-                       + 4 * b + 4 * pages_read)
-            flops = 4 * h * d * tokens
-            t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
-            t_ops = flops / F32_FLOPS_PER_S * 1e3
-            name = f"{str(dtype).split('.')[-1]} Hkv={hkv}"
-            results[(dtype, hkv)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=library_ms)
-            print(f"phase 3: paged_attention {name}: max_abs_err={err:.3e} "
-                  f"(tol {TOL[dtype]}) ms={ms:.4f} (L2 cold; warm "
-                  f"{warm_ms:.4f}) plain_ms={plain_ms:.4f} "
-                  f"library_ms={library_ms:.4f} (SDPA on pre-gathered KV) "
-                  f"bound_ms={max(t_bytes, t_ops):.6f} ({n_bytes} bytes, "
-                  f"{flops} flops) "
-                  f"{results[(dtype, hkv)]['bound_by']}-bound", flush=True)
-    return results[(torch.bfloat16, 2)]     # the main path's shape and type
+                # device time from graph replays; the eager call's time,
+                # host enqueue included, beside it
+                ms = graph_ms(lambda: kernel.paged_attention(*args), flush)
+                eager_ms = time_ms(lambda: kernel.paged_attention(*args),
+                                   flush)
+                plain_ms = time_ms(lambda: ref.paged_attention_ref(*args),
+                                   flush)
+                library_ms = graph_ms(sdpa, flush)
+                del kd, vd
+                elt = q.element_size()
+                tokens = sum(min(n, pps * page) for n in lengths_list)
+                pages_read = sum(-(-min(n, pps * page) // page)
+                                 for n in lengths_list)
+                n_bytes = (tokens * hkv * d * 2 * elt + 2 * q.numel() * elt
+                           + 4 * b + 4 * pages_read)
+                flops = 4 * h * d * tokens
+                t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+                t_ops = flops / F32_FLOPS_PER_S * 1e3
+                bound = max(t_bytes, t_ops)
+                name = f"{str(dtype).split('.')[-1]} Hkv={hkv} {sname}"
+                results[(dtype, hkv, sname)] = dict(
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound,
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    library_ms=library_ms)
+                print(f"phase 3: paged_attention {name} (B {b}, H {h}, D "
+                      f"{d}, page {page}, {pps} pages a row, n_split "
+                      f"{n_split}: grid {b} x {hkv} x {n_split}): "
+                      f"max_abs_err={err:.3e} (tol {TOL[dtype]}); vs split "
+                      f"plain version: worst {worst:.3f} of the elementwise "
+                      f"tol; ms={ms:.4f} (graph replay, L2 cold; eager "
+                      f"call {eager_ms:.4f}) plain_ms={plain_ms:.4f} "
+                      f"library_ms={library_ms:.4f} (SDPA on pre-gathered "
+                      f"KV, graph replay) bound_ms={bound:.6f} "
+                      f"({n_bytes} bytes, {flops} flops) "
+                      f"{results[(dtype, hkv, sname)]['bound_by']}-bound, "
+                      f"{bound / ms:.1%} of the bound", flush=True)
+    # the main path's shape and type
+    return results[(torch.bfloat16, 2, "decode")]
 
 
 def summarize(xs) -> str:
@@ -676,16 +737,20 @@ def flash_bound(elt: int, peak: float) -> tuple[float, str, int, int]:
 
 def tiled_gate(y, q, k, v, causal, window, q_offset, what) -> str:
     """Hold a bf16 output elementwise to the plain version that rounds p
-    where the kernel does (``ref.attention_tiled``).  The two then differ
+    where the kernel does (``ref.attention_tiled`` at the key tile of the
+    kernel's route).  The two then differ
     only by float32 summation order, which can move the output's rounding
     by an ulp (2^-7 |y| at most) and the rounding of one p by an ulp (2^-7
     p_max |v|); the gate allows two of each, plus 1e-4.  On the long rows
     of the training shape, where |y| is about 0.03, that is about 1e-3, so
     an error in the later V tiles cannot hide under the 3e-2 abs gate."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
     from repro_torch.kernels.flash_attention import ref
 
+    tile = ref.KEY_TILES[kernel.route(q.dtype, q.shape[-1])]
     want, _, p_max = ref.attention_tiled(q, k, v, causal=causal,
-                                         window=window, q_offset=q_offset)
+                                         window=window, q_offset=q_offset,
+                                         key_tile=tile)
     want = want.float()
     tol = 2.0 ** -6 * (want.abs() + p_max[..., None]
                        * v.float().abs().max()) + 1e-4
@@ -698,7 +763,8 @@ def tiled_gate(y, q, k, v, causal, window, q_offset, what) -> str:
         raise AssertionError(f"flash_attention {what}: y differs from the "
                              f"kernel-order plain version by {worst:.3f} x "
                              f"its elementwise tolerance ({late})")
-    return (f"; vs kernel-order plain version: worst {worst:.3f} of the "
+    return (f"; vs kernel-order plain version ({tile}-key tiles): worst "
+            f"{worst:.3f} of the "
             f"elementwise tol 2^-6 (|y| + p_max max|v|) + 1e-4 ({late})")
 
 

@@ -18,7 +18,7 @@ import torch
 from .. import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TENSOR_CORE_DIMS = (64, 128)      # bf16 head widths the mma.sync kernel takes
+TENSOR_CORE_DIMS = (64, 128)      # bf16 head widths the wgmma kernel takes
 MAX_D = 256                       # the scalar kernel's widest head
 _INT32_MAX = 2**31 - 1
 # flash_attention_launch(dtype, tensor_cores, q, k, v, y, lse, bh, sq, sk,
@@ -36,8 +36,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """``"mma"`` (tensor cores) for bf16 heads of 64 or 128, else
-    ``"simt"`` (scalar f32 FMA)."""
+    """``"mma"`` (tensor cores: TMA and wgmma) for bf16 heads of 64 or
+    128, else ``"simt"`` (scalar f32 FMA)."""
     return ("mma" if dtype == torch.bfloat16 and d in TENSOR_CORE_DIMS
             else "simt")
 

@@ -43,13 +43,17 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     return y.to(q.dtype), lse
 
 
-KEY_TILE = 64   # keys per tile in both routes of csrc/flash_attention.cu
+# keys per tile of each route of csrc/flash_attention.cu (kMmaKeys,
+# kSimtKeys), by the names flash_attention.route gives
+KEY_TILES = {"mma": 64, "simt": 64}
 
 
 def attention_tiled(q, k, v, *, causal: bool = True,
-                    window: int | None = None, q_offset: int = 0):
+                    window: int | None = None, q_offset: int = 0,
+                    key_tile: int = KEY_TILES["simt"]):
     """The same function in the CUDA kernel's order of work: keys in tiles
-    of ``KEY_TILE``, a running row max, and the *unnormalised* ``p`` rounded to
+    of ``key_tile`` (the route's, ``KEY_TILES``), a running row max, and
+    the *unnormalised* ``p`` rounded to
     v's dtype before P.V, the output divided by ``max(l, 1e-20)`` and
     rounded once.  In bf16 it rounds where the kernel rounds, so the two
     differ only by float32 summation order; :func:`attention_ref` rounds
@@ -65,9 +69,11 @@ def attention_tiled(q, k, v, *, causal: bool = True,
     m = torch.full((b, h, sq, 1), -math.inf, device=q.device)
     l = torch.zeros(b, h, sq, 1, device=q.device)
     acc = torch.zeros(b, h, sq, v.shape[-1], device=q.device)
-    for k0 in range(0, sk, KEY_TILE):
-        k_pos = torch.arange(k0, min(k0 + KEY_TILE, sk), device=q.device)[None, :]
-        s = torch.matmul(qf, k[:, :, k0:k0 + KEY_TILE].float().transpose(-1, -2))
+    for k0 in range(0, sk, key_tile):
+        k_pos = torch.arange(k0, min(k0 + key_tile, sk),
+                             device=q.device)[None, :]
+        s = torch.matmul(qf, k[:, :, k0:k0 + key_tile].float()
+                         .transpose(-1, -2))
         mask = torch.ones(sq, k_pos.shape[1], dtype=torch.bool,
                           device=q.device)
         if causal:
@@ -81,7 +87,7 @@ def attention_tiled(q, k, v, *, causal: bool = True,
         p = torch.where(s == -math.inf, 0.0, torch.exp(s - m_safe))
         l = l * corr + p.sum(dim=-1, keepdim=True)
         acc = acc * corr + torch.matmul(p.to(v.dtype).float(),
-                                        v[:, :, k0:k0 + KEY_TILE].float())
+                                        v[:, :, k0:k0 + key_tile].float())
         m = m_new
     m = torch.where(m == -math.inf, 0.0, m)
     den = l.clamp_min(1e-20)

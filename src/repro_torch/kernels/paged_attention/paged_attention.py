@@ -1,9 +1,12 @@
 """The CUDA paged-attention kernel's wrapper (``csrc/paged_attention.cu``).
 
-It checks its operands, allocates the output, launches on PyTorch's current
-stream without synchronising, and raises if the launch is refused.  The
-kernel is built at first use (:mod:`repro_torch.kernels._build`).
-:attr:`paged_attention.launches` counts launches and nothing else, so a run
+It checks its operands, picks how many blocks split each row's pages
+(:func:`n_splits`), allocates the output and the split partials, launches
+the partition and merge passes on PyTorch's current stream without
+synchronising, and raises if a launch is refused.  The kernels are built at
+first use (:mod:`repro_torch.kernels._build`).
+:attr:`paged_attention.launches` counts wrapper calls that launched (one
+per call, though a call is two CUDA launches) and nothing else, so a run
 can show that its decode steps went through the kernel.
 """
 from __future__ import annotations
@@ -16,14 +19,32 @@ import torch
 from .. import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_TOKENS = 64     # keys a partition block loads at once, at most
+SMS = 132             # the H100's streaming multiprocessors
+MAX_ROW_BYTES = 1024  # the kernel's widest K/V row (64 chunks of 16 bytes)
+# paged_attention_launch(dtype, q, k_pages, v_pages, page_table, lengths,
+# out, scratch, B, H, Hkv, D, page, P, n_split, stream)
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+            + [ctypes.c_void_p])
+
+
+def n_splits(b: int, hkv: int, pages_per_seq: int, page: int) -> int:
+    """How many blocks split each row's page loop: runs of
+    ``ceil(pages_per_seq / n)`` pages.  Starts from runs of SPLIT_TOKENS
+    keys (at least one page) and halves the run while the grid of
+    ``b * hkv * n`` blocks is short of one wave on the card's SMs.  A pure
+    function of shapes the host knows, never of ``lengths``, so the launch
+    needs no device sync; the plain split version takes the same count."""
+    run = max(1, SPLIT_TOKENS // page)
+    while run > 1 and b * hkv * -(-pages_per_seq // run) < SMS:
+        run //= 2
+    return -(-pages_per_seq // run)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("paged_attention")
-    lib.paged_attention_launch.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-        + [ctypes.c_void_p])
+    lib.paged_attention_launch.argtypes = ARGTYPES
     lib.paged_attention_launch.restype = ctypes.c_int
     return lib
 
@@ -37,6 +58,9 @@ def _check(q, k_pages, v_pages, page_table, lengths) -> None:
                              f"every operand must be on one CUDA device")
         if not t.is_contiguous():
             raise ValueError(f"paged_attention: {name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"paged_attention: {name} is not 16-byte "
+                             f"aligned")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"paged_attention: q dtype {q.dtype} not in "
                          f"{list(_DTYPE_CODES)}")
@@ -62,9 +86,12 @@ def _check(q, k_pages, v_pages, page_table, lengths) -> None:
     if hkv < 1 or h % hkv:
         raise ValueError(f"paged_attention: H={h} is not a multiple of "
                          f"Hkv={hkv}")
-    if (d * q.element_size()) % 16:
-        raise ValueError(f"paged_attention: a row of D={d} {q.dtype} is not "
-                         f"a multiple of 16 bytes")
+    if (d * q.element_size()) % 16 or d * q.element_size() > MAX_ROW_BYTES:
+        raise ValueError(f"paged_attention: a row of D={d} {q.dtype} must be "
+                         f"a multiple of 16 bytes, at most {MAX_ROW_BYTES}")
+    if page_table.shape[1] < 1 or page < 1:
+        raise ValueError("paged_attention: the page table and the pages "
+                         "must not be empty")
 
 
 def paged_attention(q, k_pages, v_pages, page_table, lengths):
@@ -74,14 +101,20 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
     _check(q, k_pages, v_pages, page_table, lengths)
     b, h, d = q.shape
     _, page, hkv, _ = k_pages.shape
+    p = page_table.shape[1]
+    n = n_splits(b, hkv, p, page)
     out = torch.empty_like(q)
+    # per (sequence, head, split): acc[D], then (m, l) after all the accs
+    scratch = torch.empty(b * h * n * (d + 2), dtype=torch.float32,
+                          device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_attention_launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), b, h, hkv, d, page, page_table.shape[1], stream)
+            out.data_ptr(), scratch.data_ptr(), b, h, hkv, d, page, p, n,
+            stream)
     if err != 0:     # e.g. a refused launch: too much shared memory
         raise RuntimeError(f"paged_attention: kernel launch failed with CUDA "
                            f"error {err}")

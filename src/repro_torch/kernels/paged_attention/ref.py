@@ -45,3 +45,48 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
     p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
     y = torch.einsum("bgrs,bsgd->bgrd", p, vg)
     return y.reshape(b, h, d).to(q.dtype)
+
+
+def paged_attention_split(q, k_pages, v_pages, page_table, lengths,
+                          n_split: int):
+    """The same function in the CUDA kernel's order of work: each row's
+    page loop cut into ``n_split`` runs of ``ceil(P / n_split)`` pages
+    (the count the wrapper's ``n_splits`` gives the kernel); per run and
+    head an f32 max ``m``, sum ``l`` and unnormalised ``acc``, a run past
+    the row's length empty (``m = -inf``, ``l = 0``); the runs merged as
+    ``sum e^(m_i - M) acc_i / max(sum e^(m_i - M) l_i, 1e-20)`` with an
+    empty run weighing 0, and the output rounded once.  The kernel and this
+    version then differ only by float32 summation order."""
+    b, h, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    pps = page_table.shape[1]
+    rep = h // hkv
+    run = -(-pps // n_split) * page                 # tokens a split
+    span = n_split * run
+    lengths = lengths.long().clamp(0, pps * page)
+    logical = torch.arange(pps, device=q.device)
+    live = logical[None, :] * page < lengths[:, None]
+    table = torch.where(live, page_table.long(), 0)
+    kg = k_pages[table].reshape(b, pps * page, hkv, d).float()
+    vg = v_pages[table].reshape(b, pps * page, hkv, d).float()
+    pad = span - pps * page
+    kg = torch.nn.functional.pad(kg, (0, 0, 0, 0, 0, pad))
+    vg = torch.nn.functional.pad(vg, (0, 0, 0, 0, 0, pad))
+    qg = q.float().reshape(b, hkv, rep, d)
+    s = torch.einsum("bgrd,bsgd->bgrs", qg, kg) * (1.0 / math.sqrt(d))
+    pos = torch.arange(span, device=q.device)
+    valid = (pos[None, :] < lengths[:, None])[:, None, None, :]
+    s = s.masked_fill(~valid, -math.inf).reshape(b, hkv, rep, n_split, run)
+    valid = valid.reshape(b, 1, 1, n_split, run)
+    m = s.amax(dim=-1)                                        # [B,G,R,n]
+    m_safe = torch.where(m == -math.inf, 0.0, m)
+    p = torch.where(valid, torch.exp(s - m_safe[..., None]), 0.0)
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bgrns,bnsgd->bgrnd", p,
+                       vg.reshape(b, n_split, run, hkv, d))
+    top = m.amax(dim=-1, keepdim=True)
+    top = torch.where(top == -math.inf, 0.0, top)
+    w = torch.where(m == -math.inf, 0.0, torch.exp(m - top))
+    den = (w * l).sum(dim=-1).clamp_min(1e-20)
+    y = (w[..., None] * acc).sum(dim=-2) / den[..., None]
+    return y.reshape(b, h, d).to(q.dtype)

@@ -10,8 +10,12 @@ than 32 chunks of 16 bytes, fan-ins over 32, block_rows that are no
 multiple of the warps of a block, depths clamped by the item count, a
 grid with more sets than ways, addresses that wrap in int32, attention
 tiles that the causal diagonal, the window, the tail or a query offset
-cut, MoE dispatch and combine at T = 1, K = 1 and 8, and with every choice
-dropped, and SSD scans of one chunk, one head, a ragged last chunk and
+cut, the wgmma route's tiles one past and one short (Sq, Sk around 128
+query rows and 64 keys, D 64 and 128), paged decode attention split across
+blocks at lengths that cross split boundaries, zero-length rows, rep 1 to 8,
+D 64, 80 and 128, pages of 16 and 32 and 8 rows of 4,096 tokens, MoE
+dispatch and combine at T = 1, K = 1 and 8, and with every choice dropped,
+and SSD scans of one chunk, one head, a ragged last chunk and
 4,096 rows whose decay exponents would overflow above the diagonal.  The
 last cases run the MoE and SSM model paths on the card and count their
 launches.
@@ -26,6 +30,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gather_runahead import gather_runahead as kernel
 from repro_torch.kernels.gather_runahead import ops, ref
+from repro_torch.kernels.paged_attention import paged_attention as pa_kernel
+from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.models import layers
 
 pytestmark = pytest.mark.cuda
@@ -227,6 +233,41 @@ def test_flash_attention_refuses_what_the_kernel_does_not_take(card):
     assert y.shape == (1, 2, 15, 64)
 
 
+def _tiled_gate(y, q, k, v, route, **mask):
+    """y against the kernel-order plain version at the route's key tile:
+    summation order may move y's rounding by an ulp (2^-7 |y|) and one p's
+    by an ulp (2^-7 p_max |v|); two of each, plus 1e-4."""
+    want, _, p_max = fa_ref.attention_tiled(
+        q, k, v, key_tile=fa_ref.KEY_TILES[route], **mask)
+    want = want.float()
+    tol = 2.0 ** -6 * (want.abs() + p_max[..., None]
+                       * v.float().abs().max()) + 1e-4
+    return ((y.float() - want).abs() / tol).max().item()
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq,sk", [(127, 63), (129, 65), (128, 64),
+                                   (1, 64), (255, 129), (257, 191)])
+@pytest.mark.parametrize("causal,window,q_offset", [
+    (True, None, 0), (False, None, 0), (True, 40, 0), (True, None, 61)])
+def test_flash_attention_at_the_wgmma_tile_edges(card, d, sq, sk, causal,
+                                                 window, q_offset):
+    """The tensor-core route at Sq one past and one short of its 128-row
+    query tile and Sk of its 64-key tile: the TMA boxes past S zero-fill
+    inside their head, the diagonal and tail tiles mask."""
+    q, k, v = _qkv(2, 3, sq, sk, d, torch.bfloat16, card, seed=9)
+    assert fa_kernel.route(q.dtype, d) == "mma"
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    y, lse = fa_kernel.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    want_y, want_lse = fa_ref.attention_ref(q, k, v, **mask)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(lse).all()
+    assert (y.float() - want_y.float()).abs().max().item() \
+        <= FLASH_TOL[torch.bfloat16]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert _tiled_gate(y, q, k, v, "mma", **mask) <= 1.0
+
+
 @pytest.mark.parametrize("triangular,window", [(False, None), (True, None),
                                                (False, 24)])
 def test_blocked_attention_grads_on_the_card(card, triangular, window):
@@ -245,6 +286,95 @@ def test_blocked_attention_grads_on_the_card(card, triangular, window):
         grads.append([a.grad.float() for a in args])
     for a, b in zip(*grads):
         assert (a - b).abs().max().item() <= 2e-4
+
+
+# ---------------------------------------------------------------------------
+# paged decode attention, split across blocks
+# ---------------------------------------------------------------------------
+
+PAGED_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+
+
+def _pages(b, h, hkv, d, page, pps, dtype, device, seed=3):
+    gen = torch.Generator().manual_seed(seed)
+    n_pages = 1 + b * pps
+    table = (torch.randperm(n_pages - 1, generator=gen)[:b * pps] + 1) \
+        .reshape(b, pps).to(torch.int32).to(device)
+    q = torch.randn(b, h, d, generator=gen).to(dtype).to(device)
+    kp, vp = (torch.randn(n_pages, page, hkv, d, generator=gen).to(dtype)
+              .to(device) for _ in range(2))
+    return q, kp, vp, table
+
+
+def _paged_lengths(b, page, pps, hkv):
+    """Lengths one short of, at and one past split boundaries, a zero-length
+    row and a full one, cycled over b rows."""
+    n = pa_kernel.n_splits(b, hkv, pps, page)
+    run = -(-pps // n) * page
+    lens = [0, pps * page, 1]
+    for edge in sorted({run, (n // 2) * run, (n - 1) * run} - {0}):
+        lens += [edge - 1, edge, edge + 1]
+    return [lens[i % len(lens)] for i in range(b)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,hkv,d,page,pps", [
+    (8, 12, 2, 128, 16, 32),       # the serving path: qwen2-1.5b's heads
+    (8, 12, 2, 128, 16, 256),      # 8 rows of 4,096 tokens
+    (12, 4, 4, 64, 16, 8),         # rep 1
+    (9, 8, 4, 80, 32, 8),          # rep 2, D 80, page 32
+    (9, 48, 8, 128, 16, 24),       # rep 6 (dbrx-132b)
+    (9, 16, 2, 128, 32, 12),       # rep 8, page 32
+])
+def test_paged_attention_matches_its_plain_versions(card, dtype, b, h, hkv,
+                                                    d, page, pps):
+    """The split kernel against the plain version within bf16 3e-2 / f32
+    1e-4, and elementwise against the split plain version at the wrapper's
+    split count (the two differ by float32 summation order only: an ulp of
+    the output, 2^-7 |y| in bf16, plus 1e-5)."""
+    q, kp, vp, table = _pages(b, h, hkv, d, page, pps, dtype, card)
+    if pps == 256:
+        lengths = [pps * page] * b
+    else:
+        lengths = _paged_lengths(b, page, pps, hkv)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = pa_kernel.paged_attention.launches
+    out = pa_kernel.paged_attention(q, kp, vp, table, ln)
+    torch.cuda.synchronize()
+    assert pa_kernel.paged_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert torch.isfinite(out.float()).all()
+    want = pa_ref.paged_attention_ref(q, kp, vp, table, ln).float()
+    assert (out.float() - want).abs().max().item() <= PAGED_TOL[dtype]
+    split = pa_ref.paged_attention_split(
+        q, kp, vp, table, ln,
+        pa_kernel.n_splits(b, hkv, pps, page)).float()
+    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -20
+    assert bool(((out.float() - split).abs()
+                 <= ulp * split.abs() + 1e-5).all())
+    for i, n in enumerate(lengths):
+        if n == 0:
+            assert out[i].abs().max().item() == 0.0
+
+
+def test_paged_attention_refuses_what_the_kernel_does_not_take(card):
+    q, kp, vp, table = _pages(2, 4, 2, 64, 16, 4, torch.bfloat16, card)
+    ln = torch.tensor([5, 64], dtype=torch.int32, device=card)
+    before = pa_kernel.paged_attention.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        pa_kernel.paged_attention(q.cpu(), kp.cpu(), vp.cpu(), table.cpu(),
+                                  ln.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        pa_kernel.paged_attention(q, kp, vp, table.long(), ln)
+    with pytest.raises(ValueError, match="16 bytes"):
+        f = _pages(2, 4, 2, 6, 16, 4, torch.float32, card)
+        pa_kernel.paged_attention(*f, ln)
+    with pytest.raises(ValueError, match="aligned"):
+        flat = torch.empty(q.numel() + 1, dtype=q.dtype, device=card)
+        pa_kernel.paged_attention(flat[1:].view(q.shape), kp, vp, table, ln)
+    with pytest.raises(ValueError, match="dtype"):
+        pa_kernel.paged_attention(q, kp.float(), vp, table, ln)
+    assert pa_kernel.paged_attention.launches == before
 
 
 # ---------------------------------------------------------------------------

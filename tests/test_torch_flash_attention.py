@@ -143,9 +143,19 @@ def test_ctypes_signature_matches_the_source():
     assert kernel.ARGTYPES == want
 
 
-def test_key_tile_matches_the_source():
-    """The kernel-order plain version tiles keys as both CUDA routes do."""
+@pytest.mark.parametrize("route,name", [("mma", "kMmaKeys"),
+                                        ("simt", "kSimtKeys")])
+def test_key_tile_matches_the_source(route, name):
+    """The kernel-order plain version tiles keys as each CUDA route does,
+    and at that tile computes the plain version's function."""
     src = _build.SOURCES["flash_attention"].read_text()
-    for name in ("kMmaKeys", "kSimtKeys"):
-        assert int(re.search(rf"constexpr int {name} = (\d+);",
-                             src).group(1)) == ref.KEY_TILE
+    tile = int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert tile == ref.KEY_TILES[route]
+    q, k, v = (_t(a) for a in _inputs("float32", 1, 2, 2, 70, 3 * tile + 5,
+                                      16, seed=8))
+    y, lse, _ = ref.attention_tiled(q, k, v, causal=True, q_offset=3 * tile,
+                                    key_tile=tile)
+    want_y, want_lse = ref.attention_ref(q, k, v, causal=True,
+                                         q_offset=3 * tile)
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), **TOLS["float32"])
+    np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **LSE_TOL)
