@@ -48,20 +48,25 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     (dispatch bit-identical, combine within one bf16 rounding) at dbrx's
     serving shapes (decode 8 tokens, prefill chunk 64) and 4 groups of
     1,024 tokens, with the slots of dbrx's own top-4 routing at capacity
-    factor 1.25; time them against the bound, ``index_copy_`` and
-    ``embedding_bag``;
+    factor 1.25; time them and ``index_copy_`` / ``embedding_bag`` by
+    CUDA-graph replay (eager events beside) against the bound;
 11. serve full-width dbrx-132b, 8 of its 40 layers, through the engine as
     in phase 4, with the paged-attention, dispatch and combine counters
     set to 0 just before and read just after (dispatch and combine once a
     layer per decode step and prefill chunk); hold the MoE kernels' logits
     against their plain versions at one prefill chunk and one decode step
     in float32 (2 layers, 1e-4 of the logit std) and report bfloat16;
-12. hold the SSD kernel against the plain chunked scan at mamba2's head
-    shape (B 4 x S 4,096 x H 80 x P 64 x N 128, bf16 in, f32 y) within
-    1e-4 |want| + 1e-5 max|want| elementwise, and against the per-token
-    recurrence at a small shape; time it against the bound;
+12. hold the SSD kernel's tensor-core (mma) route against the plain
+    chunked scan at mamba2's head shape (B 4 x S 4,096 x H 80 x P 64 x N
+    128, bf16 in, f32 y) within 1e-4 |want| + 1e-5 max|want| elementwise,
+    against its split-bf16 plain version in the kernel's order, and
+    against the per-token recurrence at a small shape; time the mma and
+    the scalar (simt) route by graph replay and eager events against the
+    bound (bytes at 3.35 TB/s or flops at 989 TFLOP/s); the mma route must
+    be the faster;
 13. run full-width, full-depth mamba2-2.7b: ``api.prefill`` at B 4 x S
-    4,096 with exactly 64 SSD launches, then 32 greedy lockstep
+    4,096 with exactly 64 SSD launches, all on the mma route, then 32
+    greedy lockstep
     ``api.decode`` steps of 8 sequences; hold prefill against 512 decode
     steps in float32 at 4 layers (1e-3 of the logit std) and report the
     bfloat16 full-depth gap.
@@ -1076,8 +1081,8 @@ def phase_moe_kernels(flush: torch.Tensor) -> dict:
     """Dispatch and combine against their plain versions at the dbrx
     serving shapes (decode: 8 tokens; prefill chunk: 64 tokens) and a
     grouped shape (4 groups of 1,024 tokens), slots from the router's own
-    top-4 routing at capacity factor 1.25; times against the bound and
-    one PyTorch call each.  Returns the kernels-line numbers (decode
+    top-4 routing at capacity factor 1.25; times (graph replay, eager
+    beside) against the bound and one PyTorch call each.  Returns the kernels-line numbers (decode
     shape, bf16)."""
     from repro_torch.kernels.moe_dispatch import moe_dispatch as kernel
     from repro_torch.kernels.moe_dispatch import ref
@@ -1129,42 +1134,48 @@ def phase_moe_kernels(flush: torch.Tensor) -> dict:
                                                 device="cuda")])
             bag_idx = torch.where(kept, slot, n_slots).long()
             w_lib = w.to(dtype)
-            times = {
-                # each token read once, however many of its choices are
-                # kept; its slots; every output row written once
-                "dispatch": (
-                    time_ms(lambda: kernel.dispatch(x, slot, n_slots), flush),
-                    time_ms(lambda: ref.dispatch_ref(x, slot, n_slots),
-                            flush),
-                    time_ms(lambda: lib_out.index_copy_(0, dest, src),
-                            flush),
-                    n_tok_kept * row + t * k * 4 + n_slots * row, 0),
-                "combine": (
-                    time_ms(lambda: kernel.combine(ye, slot, w), flush),
-                    time_ms(lambda: ref.combine_ref(ye, slot, w), flush),
-                    time_ms(lambda: torch.nn.functional.embedding_bag(
-                        bag_idx, ye_pad, per_sample_weights=w_lib,
-                        mode="sum"), flush),
-                    n_kept * row + t * k * 8 + t * row, 2 * n_kept * d)}
-            for kname, (ms, plain_ms, lib_ms, n_bytes, flops) in \
-                    times.items():
+            kern = {"dispatch": lambda: kernel.dispatch(x, slot, n_slots),
+                    "combine": lambda: kernel.combine(ye, slot, w)}
+            lib = {"dispatch": lambda: lib_out.index_copy_(0, dest, src),
+                   "combine": lambda: torch.nn.functional.embedding_bag(
+                       bag_idx, ye_pad, per_sample_weights=w_lib,
+                       mode="sum")}
+            plain = {"dispatch": lambda: ref.dispatch_ref(x, slot, n_slots),
+                     "combine": lambda: ref.combine_ref(ye, slot, w)}
+            # each token read once, however many of its choices are kept;
+            # its slots; every output row written once
+            work = {"dispatch": (n_tok_kept * row + t * k * 4
+                                 + n_slots * row, 0),
+                    "combine": (n_kept * row + t * k * 8 + t * row,
+                                2 * n_kept * d)}
+            for kname, (n_bytes, flops) in work.items():
+                # device time from graph replays (a call of ~10 us timed by
+                # eager events times the Python wrapper); eager beside it
+                ms = graph_ms(kern[kname], flush)
+                eager_ms = time_ms(kern[kname], flush)
+                lib_ms = graph_ms(lib[kname], flush)
+                lib_eager_ms = time_ms(lib[kname], flush)
+                plain_ms = time_ms(plain[kname], flush)
                 t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
                 t_ops = flops / F32_FLOPS_PER_S * 1e3
                 bound = max(t_bytes, t_ops)
                 by = "bytes" if t_bytes >= t_ops else "operations"
-                lib = ("index_copy_ of the pre-gathered kept rows"
-                       if kname == "dispatch" else
-                       "embedding_bag, sum, per-sample weights, drops on a "
-                       "zero row")
+                lib_name = ("index_copy_ of the pre-gathered kept rows"
+                            if kname == "dispatch" else
+                            "embedding_bag, sum, per-sample weights, drops "
+                            "on a zero row")
                 print(f"phase 10: moe {kname} {name} {sname} (T {t}, K {k}, "
                       f"D {d}, group {group}, {n_slots} slots, {n_kept} "
                       f"kept, drop share {drop:.4f}): max abs err "
                       f"{0.0 if kname == 'dispatch' else err:.3e} "
                       f"({'bit-identical' if kname == 'dispatch' else 'within one bf16 rounding' if dtype == torch.bfloat16 else 'within K 2^-23 sum|w x|'}) "
-                      f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-                      f"{lib_ms:.4f} ({lib}) bound_ms={bound:.6f} "
-                      f"({n_bytes} bytes, {flops} flops) {by}-bound: "
-                      f"{bound / ms:.1%} of the bound; {card}", flush=True)
+                      f"ms={ms:.4f} (graph replay; eager {eager_ms:.4f}) "
+                      f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                      f"(graph replay; eager {lib_eager_ms:.4f}; {lib_name})"
+                      f" bound_ms={bound:.6f} ({n_bytes} bytes, {flops} "
+                      f"flops) {by}-bound: {bound / ms:.1%} of the bound; "
+                      f"kernel / library {ms / lib_ms:.3f}; {card}",
+                      flush=True)
                 if sname == "decode" and dtype == torch.bfloat16:
                     out[f"moe_{kname}"] = dict(
                         max_abs_err=0.0 if kname == "dispatch" else err,
@@ -1268,22 +1279,27 @@ def ssd_inputs(b, s, h, p, n, gen) -> list:
             f(b, s, n).to(torch.bfloat16), f(h)]
 
 
-def ssd_bound(b, s, h, p, n) -> tuple[float, str, int, int]:
-    """(bound ms, what bounds it, flops, bytes) of the chunked scan at the
-    kernel's 64-row chunks: per (batch row, chunk) C.B^T over the causal
-    half, shared by the heads; per head the causal half of att.x and the
-    inter-chunk and state products (2 Q N P flops each).  Bytes: x, B, C
-    (bf16), dt (f32), A_log and D read once, y (f32) written once."""
+def ssd_bound(b, s, h, p, n) -> dict:
+    """The least time of the scan at bf16 x/B/C in and f32 y out: flops of
+    the chunked form at the kernels' 64-row chunks (per batch row and chunk
+    C.B^T over the causal half, shared by the heads; per head the causal
+    half of att.x and the inter-chunk and state products, 2 Q N P flops
+    each); bytes of x, B, C (bf16), dt (f32), A_log and D read once and y
+    (f32) written once.  The bound is the larger of bytes at 3.35 TB/s and
+    flops at the tensor cores' 989 TFLOP/s (bf16); ``simt_ops_ms`` is the
+    flops at the CUDA cores' f32 67 TFLOP/s, the scalar route's floor."""
     q = 64
     nc = -(-s // q)
     pairs = q * (q + 1) // 2
     flops = b * nc * (2 * pairs * n + h * (2 * pairs * p + 4 * q * n * p))
     n_bytes = (b * s * h * p * 2 + 2 * b * s * n * 2 + b * s * h * 4
                + 2 * h * 4 + b * s * h * p * 4)
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
     t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
-    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
-            else "bytes", flops, n_bytes)
+    return dict(bound=max(t_ops, t_bytes),
+                by="operations" if t_ops >= t_bytes else "bytes",
+                flops=flops, n_bytes=n_bytes, ops_ms=t_ops,
+                simt_ops_ms=flops / F32_FLOPS_PER_S * 1e3)
 
 
 def ssd_gate(y, want) -> float:
@@ -1293,14 +1309,19 @@ def ssd_gate(y, want) -> float:
 
 
 def phase_ssd_kernel(flush: torch.Tensor) -> dict:
-    """The SSD kernel against its plain versions at mamba2's head shape
-    and a small one; times against the bound.  Returns the kernels-line
-    numbers."""
+    """The SSD kernel's mma route (bf16 tensor cores) against its plain
+    versions at mamba2's head shape and a small one, and elementwise
+    against the plain version in its own order (``ssd_chunked_split``);
+    both routes timed against the bound in one run.  Returns the
+    kernels-line numbers (the mma route's)."""
     from repro_torch.kernels.ssd_scan import ref
     from repro_torch.kernels.ssd_scan import ssd_scan as kernel
 
     gen = torch.Generator(device="cuda").manual_seed(31)
     small = ssd_inputs(1, 256, 4, 64, 128, gen)
+    if kernel.route(small[0].dtype, 64, 128) != "mma":
+        raise AssertionError("ssd_scan: mamba2's head does not take the mma "
+                             "route")
     y = kernel.ssd_scan(*small, out_dtype=torch.float32)
     naive, _ = ref.ssd_ref(*small)
     worst_small = ssd_gate(y, naive)
@@ -1314,30 +1335,62 @@ def phase_ssd_kernel(flush: torch.Tensor) -> dict:
     want = ref.ssd_chunked_ref(*args, chunk=256)
     worst = ssd_gate(y, want)
     err = (y - want).abs().max().item()
-    if not (torch.isfinite(y).all() and worst <= 1.0):
+    max_y = want.abs().max().item()
+    del want
+    split = ssd_gate(y, ref.ssd_chunked_split(*args, pieces=2))
+    y_simt = kernel.ssd_scan(*args, out_dtype=torch.float32, use="simt")
+    simt_vs_mma = ssd_gate(y, y_simt)
+    del y_simt
+    if not (torch.isfinite(y).all() and worst <= 1.0 and split <= 1.0):
         raise AssertionError(f"ssd_scan at B {b} x S {s} x H {h} x P {p} x N "
                              f"{n}: {worst:.3f} x the elementwise tol 1e-4 "
-                             f"|want| + 1e-5 max|want| (max abs err {err})")
-    print(f"phase 12: ssd_scan (bf16 in, f32 y) at B {b} x S {s} x H {h} x "
-          f"P {p} x N {n} against the plain chunked form at chunk 256: max "
-          f"abs err {err:.3e} (max|y| {want.abs().max().item():.3f}), worst "
+                             f"|want| + 1e-5 max|want| of the chunked form, "
+                             f"{split:.3f} x of the split form (max abs err "
+                             f"{err})")
+    print(f"phase 12: ssd_scan mma route (bf16 in, f32 y) at B {b} x S {s} x"
+          f" H {h} x P {p} x N {n} against the plain chunked form at chunk "
+          f"256: max abs err {err:.3e} (max|y| {max_y:.3f}), worst "
           f"{worst:.3f} of the elementwise tol 1e-4 |want| + 1e-5 max|want|;"
-          f" at B 1 x S 256 x H 4 against the per-token recurrence: worst "
-          f"{worst_small:.3f}", flush=True)
-    del want, naive, small
-    ms = time_ms(lambda: kernel.ssd_scan(*args, out_dtype=torch.float32),
-                 flush)
+          f" against the split-bf16 plain version in the kernel's order: "
+          f"worst {split:.3f}; at B 1 x S 256 x H 4 against the per-token "
+          f"recurrence: worst {worst_small:.3f}; the simt route differs from"
+          f" it by {simt_vs_mma:.3f} of the tol (reported)", flush=True)
+    del naive, small
+    bound = ssd_bound(b, s, h, p, n)
+    times = {}
+    for use in ("mma", "simt"):
+        call = lambda: kernel.ssd_scan(*args, out_dtype=torch.float32,
+                                       use=use)
+        times[use] = (graph_ms(call, flush, iters=20),
+                      time_ms(call, flush, iters=20))
     plain_ms = time_ms(lambda: ref.ssd_chunked_ref(*args, chunk=64), flush,
                        iters=10)
-    bound, by, flops, n_bytes = ssd_bound(b, s, h, p, n)
-    print(f"phase 12: ssd_scan ms={ms:.4f} plain_ms={plain_ms:.4f} (the "
-          f"chunked form at the kernel's 64-row chunks, median of 10) "
-          f"library_ms=none bound_ms={bound:.4f} ({flops} flops at "
-          f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s f32, {n_bytes} bytes) "
-          f"{by}-bound: {flops / ms / 1e9:.1f} TFLOP/s = {bound / ms:.1%} "
-          f"of the bound; {card_line()}", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None)
+    ms = times["mma"][0]
+    for use, (g_ms, e_ms) in times.items():
+        floor = bound["bound"] if use == "mma" else bound["simt_ops_ms"]
+        print(f"phase 12: ssd_scan route {use}: ms={g_ms:.4f} (graph replay, "
+              f"median of 20; eager {e_ms:.4f}); {bound['flops']} flops = "
+              f"{bound['flops'] / g_ms / 1e9:.1f} TFLOP/s; "
+              f"{bound['n_bytes'] / g_ms / 1e6:.1f} GB/s; "
+              f"{floor / g_ms:.1%} of its floor {floor:.4f} ms "
+              f"({'the bound' if use == 'mma' else 'f32 CUDA-core operations at 67 TFLOP/s'})",
+              flush=True)
+    print(f"phase 12: ssd_scan bound_ms={bound['bound']:.4f} "
+          f"{bound['by']}-bound ({bound['n_bytes']} bytes at 3.35 TB/s; "
+          f"{bound['flops']} flops take {bound['ops_ms']:.4f} ms at 989 "
+          f"TFLOP/s bf16, {bound['simt_ops_ms']:.4f} ms at 67 TFLOP/s f32); "
+          f"plain_ms={plain_ms:.4f} (the chunked form at the kernel's 64-row "
+          f"chunks, median of 10) library_ms=none; mma {ms:.4f} ms vs simt "
+          f"{times['simt'][0]:.4f} ms: {times['simt'][0] / ms:.2f}x; "
+          f"{card_line()}", flush=True)
+    if not ms < times["simt"][0]:
+        raise AssertionError(f"ssd_scan: the mma route ({ms:.4f} ms) is not "
+                             f"faster than the simt route "
+                             f"({times['simt'][0]:.4f} ms)")
+    return dict(kernel_route="mma", max_abs_err=err, ms=ms,
+                eager_ms=times["mma"][1], simt_ms=times["simt"][0],
+                plain_ms=plain_ms, bound_ms=bound["bound"],
+                bound_by=bound["by"], library_ms=None)
 
 
 def phase_mamba(cfg) -> int:
@@ -1365,11 +1418,13 @@ def phase_mamba(cfg) -> int:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         kernel.ssd_scan.launches = 0
+        kernel.ssd_scan.route_launches.update(simt=0, mma=0)
         t0 = time.perf_counter()
         logits = api.prefill(params, batch, cfg, device="cuda")
         torch.cuda.synchronize()
         prefill_ms = (time.perf_counter() - t0) * 1e3
         launches = kernel.ssd_scan.launches
+        by_route = dict(kernel.ssd_scan.route_launches)
         peak = torch.cuda.max_memory_allocated()
         again = []
         for _ in range(2):
@@ -1377,9 +1432,11 @@ def phase_mamba(cfg) -> int:
             api.prefill(params, batch, cfg, device="cuda")
             torch.cuda.synchronize()
             again.append((time.perf_counter() - t0) * 1e3)
-    if launches != cfg.n_layers:
-        raise AssertionError(f"ssd_scan launched {launches} times in one "
-                             f"prefill of {cfg.n_layers} layers")
+    if launches != cfg.n_layers or by_route["mma"] != cfg.n_layers:
+        raise AssertionError(f"ssd_scan launched {launches} times "
+                             f"({by_route}) in one prefill of "
+                             f"{cfg.n_layers} layers; want all on the mma "
+                             f"route")
     if not (torch.isfinite(logits).all()
             and logits.shape == (b, cfg.vocab_size)):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
@@ -1388,7 +1445,8 @@ def phase_mamba(cfg) -> int:
     print(f"phase 13: prefill B {b} x S {s}: ms {[round(x, 1) for x in ms]} "
           f"(median {statistics.median(ms):.1f}) = "
           f"{b * s / statistics.median(ms) * 1e3:.1f} tokens/s; ssd_scan "
-          f"launches {launches} = {cfg.n_layers} layers; logits finite, "
+          f"launches {launches} = {cfg.n_layers} layers, by route "
+          f"{by_route}; logits finite, "
           f"std {logits.std().item():.4f}; peak memory "
           f"{peak / 2**30:.3f} GiB; {card_line()}", flush=True)
 

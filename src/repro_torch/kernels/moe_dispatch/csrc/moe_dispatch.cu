@@ -23,14 +23,24 @@
 // does 2 flops per fetched element, far below the ~20 flops per byte
 // where f32 arithmetic would bound it.  What matters is that every row
 // read is independent and wide:
-//   * dispatch gives each token to one block, which reads the token's K
-//     slots (broadcast loads), returns at once if every choice was
-//     dropped, and reads the row once with 16-byte vector loads, storing
-//     each chunk to every kept slot and marking those slots filled.  A
-//     second kernel then zeroes the rows left unmarked, so every output
-//     byte is written once and every kept token read once: the bytes the
-//     function needs, and no more (a memset of the whole output first
-//     would write the kept rows twice);
+//   * dispatch is one launch.  Block b gives token b (b < tokens) its
+//     scatter: it reads the token's K slots (broadcast loads), skips the
+//     row if every choice was dropped, and reads the row once with 16-byte
+//     vector loads, storing each chunk to every kept slot.  The same block
+//     zeroes the rows of its own slot range [b R, b R + R) that no kept
+//     choice fills: it scans the T x K slots once into a flag per row in
+//     shared memory.  So every output byte is written once and every kept
+//     token read once: the bytes the function needs, and no more (a memset
+//     of the whole output first would write the kept rows twice), with no
+//     order needed between blocks.  R is the fewest rows whose bytes are
+//     16 times the scan's T x K x 4 (one row a block at decode), so the
+//     scans' extra reads stay under 1/16 of the output; the scan loads 16
+//     bytes at a time.  When the blocks are too few to fill the card
+//     (264, two an SM), each row's columns are split over as many blocks
+//     as make up the difference (5 at dbrx's decode, 64 blocks).  One
+//     launch, because at dbrx's decode shape (~0.9 MB) each graph node
+//     (a memset of flags, a scatter, a zeroing pass) costs more than the
+//     bytes: three took longer than index_copy_.
 //   * combine gives each token to one block.  The block reads the token's
 //     K slots and weights in one coalesced load into shared memory, then
 //     each thread issues the loads of its 16-byte chunk of every kept row
@@ -50,43 +60,72 @@ namespace {
 constexpr int kDispatchThreads = 128;  // most threads a token's block
 constexpr int kCombineThreads = 256;
 constexpr int kMaxFanin = 8;        // K the kernels take
+constexpr int kMaxRange = 4096;     // rows a dispatch block zeroes at most
+constexpr int kFillBlocks = 264;    // dispatch blocks that fill an H100: 2
+                                    // a streaming multiprocessor
+
+__device__ __forceinline__ void mark(unsigned char* filled, int slot,
+                                     long long base, int n_rows) {
+  const long long r = slot - base;       // a drop (-1) is < 0
+  if (r >= 0 && r < n_rows) filled[r] = 1;
+}
 
 __global__ void __launch_bounds__(kDispatchThreads)
 dispatch_kernel(const uint4* __restrict__ x, const int* __restrict__ slot,
-                uint4* __restrict__ out, unsigned char* __restrict__ filled,
-                int fanin, int chunks) {
-  const int t = blockIdx.x;
+                uint4* __restrict__ out, int tokens, int fanin, int chunks,
+                int n_slots, int rows_per_block, int part_chunks) {
+  extern __shared__ unsigned char s_filled[];   // a flag per row of range
+  const int b = blockIdx.x;
+  const int c0 = blockIdx.y * part_chunks;      // this block's columns
+  const int c1 = min(chunks, c0 + part_chunks);
+  // the zeroing of this block's slot range (uniform per block)
+  const long long base = static_cast<long long>(b) * rows_per_block;
+  const int n_rows = static_cast<int>(
+      min(static_cast<long long>(rows_per_block),
+          max(0ll, static_cast<long long>(n_slots) - base)));
+  if (n_rows > 0) {
+    for (int r = threadIdx.x; r < n_rows; r += blockDim.x) s_filled[r] = 0;
+    __syncthreads();
+    const int entries = tokens * fanin;   // scanned 16 bytes a load
+    const int n4 =
+        (reinterpret_cast<uintptr_t>(slot) & 15) == 0 ? entries / 4 : 0;
+    const int4* slot4 = reinterpret_cast<const int4*>(slot);
+#pragma unroll 4
+    for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+      const int4 v = __ldg(slot4 + i);
+      mark(s_filled, v.x, base, n_rows);
+      mark(s_filled, v.y, base, n_rows);
+      mark(s_filled, v.z, base, n_rows);
+      mark(s_filled, v.w, base, n_rows);
+    }
+    for (int e = 4 * n4 + threadIdx.x; e < entries; e += blockDim.x)
+      mark(s_filled, __ldg(slot + e), base, n_rows);
+    __syncthreads();
+    for (int r = 0; r < n_rows; ++r) {
+      if (s_filled[r]) continue;
+      uint4* row = out + (base + r) * chunks;
+      for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x)
+        row[c] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  if (b >= tokens) return;
+  // the scatter of token b
   int dest[kMaxFanin];
   bool any = false;
 #pragma unroll
   for (int k = 0; k < kMaxFanin; ++k) {
-    dest[k] = k < fanin ? __ldg(slot + static_cast<size_t>(t) * fanin + k)
+    dest[k] = k < fanin ? __ldg(slot + static_cast<size_t>(b) * fanin + k)
                         : -1;
     any = any || dest[k] >= 0;
   }
   if (!any) return;                        // every choice dropped
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int k = 0; k < kMaxFanin; ++k)
-      if (dest[k] >= 0) filled[dest[k]] = 1;
-  }
-  const uint4* src = x + static_cast<size_t>(t) * chunks;
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x) {
+  const uint4* src = x + static_cast<size_t>(b) * chunks;
+  for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
     const uint4 v = __ldg(src + c);        // the token's row, read once
 #pragma unroll
     for (int k = 0; k < kMaxFanin; ++k)
       if (dest[k] >= 0) out[static_cast<size_t>(dest[k]) * chunks + c] = v;
   }
-}
-
-__global__ void __launch_bounds__(kDispatchThreads)
-zero_unfilled_kernel(uint4* __restrict__ out,
-                     const unsigned char* __restrict__ filled, int chunks) {
-  const int r = blockIdx.x;
-  if (filled[r]) return;
-  uint4* row = out + static_cast<size_t>(r) * chunks;
-  for (int c = threadIdx.x; c < chunks; c += blockDim.x)
-    row[c] = make_uint4(0u, 0u, 0u, 0u);
 }
 
 template <typename T>
@@ -175,32 +214,37 @@ extern "C" {
 // Every function returns a cudaError_t: 0 = launched.
 
 // x [tokens, row_bytes / elt]; slot [tokens, fanin] int32 with fanin in
-// 1..8; filled [n_slots] bytes of scratch; out [n_slots, row] receives the
-// kept rows, and zeros in the rows no choice fills.
+// 1..8; out [n_slots, row] receives the kept rows, and zeros in the rows no
+// choice fills.  One launch.
 int moe_dispatch_launch(const void* x, const void* slot, void* out,
-                        void* filled, int tokens, int fanin, int row_bytes,
-                        int n_slots, void* stream) {
+                        int tokens, int fanin, int row_bytes, int n_slots,
+                        void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fanin < 1 || fanin > kMaxFanin)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_slots == 0) return 0;
-  cudaError_t err = cudaMemsetAsync(filled, 0, n_slots, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int chunks = row_bytes / 16;
-  const int warps = (chunks + 31) / 32;    // a short row takes fewer threads
+  // rows a block zeroes: their bytes 16x the scan's, at most kMaxRange
+  const long long scan = 16ll * tokens * fanin * 4;
+  const int range = static_cast<int>(
+      scan <= row_bytes ? 1
+                        : min(static_cast<long long>(kMaxRange),
+                              (scan + row_bytes - 1) / row_bytes));
+  const int zero_blocks = (n_slots + range - 1) / range;
+  const int blocks = tokens > zero_blocks ? tokens : zero_blocks;
+  // too few blocks to fill the card (decode): split the rows' columns
+  const int max_parts = chunks / 32 > 1 ? chunks / 32 : 1;
+  int parts = (kFillBlocks + blocks - 1) / blocks;
+  parts = parts < 1 ? 1 : parts > max_parts ? max_parts : parts;
+  const int part_chunks = (chunks + parts - 1) / parts;
+  parts = (chunks + part_chunks - 1) / part_chunks;
+  const int warps = (part_chunks + 31) / 32;  // a short row, fewer threads
   const int threads =
       warps * 32 < kDispatchThreads ? warps * 32 : kDispatchThreads;
-  if (tokens > 0) {
-    dispatch_kernel<<<tokens, threads, 0, s>>>(
-        static_cast<const uint4*>(x), static_cast<const int*>(slot),
-        static_cast<uint4*>(out), static_cast<unsigned char*>(filled), fanin,
-        chunks);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  zero_unfilled_kernel<<<n_slots, threads, 0, s>>>(
-      static_cast<uint4*>(out), static_cast<const unsigned char*>(filled),
-      chunks);
+  dispatch_kernel<<<dim3(blocks, parts), threads, range, s>>>(
+      static_cast<const uint4*>(x), static_cast<const int*>(slot),
+      static_cast<uint4*>(out), tokens, fanin, chunks, n_slots, range,
+      part_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

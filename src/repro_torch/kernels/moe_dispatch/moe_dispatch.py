@@ -23,9 +23,9 @@ MAX_FANIN = 8                    # K the kernels take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT32_MAX = 2**31 - 1
 _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
-# moe_dispatch_launch(x, slot, out, filled, tokens, fanin, row_bytes,
-# n_slots, stream)
-DISPATCH_ARGTYPES = [_ptr] * 4 + [_i32] * 4 + [_ptr]
+# moe_dispatch_launch(x, slot, out, tokens, fanin, row_bytes, n_slots,
+# stream)
+DISPATCH_ARGTYPES = [_ptr] * 3 + [_i32] * 4 + [_ptr]
 # moe_combine_launch(dtype, ye, slot, w, y, tokens, fanin, row_bytes, stream)
 COMBINE_ARGTYPES = [_i32] + [_ptr] * 4 + [_i32] * 3 + [_ptr]
 
@@ -106,11 +106,10 @@ def dispatch(x: torch.Tensor, slot: torch.Tensor,
     out = torch.empty((n_slots, x.shape[1]), dtype=x.dtype, device=device)
     if n_slots == 0:
         return out
-    filled = torch.empty(n_slots, dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
         err = _lib().moe_dispatch_launch(
-            x.data_ptr(), slot.data_ptr(), out.data_ptr(), filled.data_ptr(),
-            x.shape[0], fanin, row_bytes, n_slots, _stream(device))
+            x.data_ptr(), slot.data_ptr(), out.data_ptr(), x.shape[0], fanin,
+            row_bytes, n_slots, _stream(device))
     _raise_on(who, err)
     dispatch.launches += 1
     return out

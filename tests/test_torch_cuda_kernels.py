@@ -16,7 +16,8 @@ blocks at lengths that cross split boundaries, zero-length rows, rep 1 to 8,
 D 64, 80 and 128, pages of 16 and 32 and 8 rows of 4,096 tokens, MoE
 dispatch and combine at T = 1, K = 1 and 8, and with every choice dropped,
 and SSD scans of one chunk, one head, a ragged last chunk and
-4,096 rows whose decay exponents would overflow above the diagonal.  The
+4,096 rows whose decay exponents would overflow above the diagonal, on
+the scalar and the tensor-core route (P and N 64 and 128).  The
 last cases run the MoE and SSM model paths on the card and count their
 launches.
 """
@@ -496,14 +497,18 @@ def _ssd_gate(y, want):
     return ((y.float() - want).abs() / tol).max().item()
 
 
-@pytest.mark.parametrize("b,s,h,p,n,dtype,out", [
+SSD_CASES = [
     (1, 64, 1, 8, 16, torch.float32, torch.float32),    # one chunk, H = 1
     (2, 100, 3, 8, 16, torch.float32, torch.float32),   # ragged last chunk
     (2, 256, 4, 64, 128, torch.bfloat16, torch.float32),  # mamba2's head
     (1, 192, 2, 128, 128, torch.bfloat16, torch.float32),  # jamba's head
     (2, 128, 4, 16, 8, torch.float32, torch.float32),   # test_kernels' shape
     (2, 128, 4, 16, 8, torch.bfloat16, torch.bfloat16),
-])
+]
+SSD_ROUTES = ["simt", "simt", "mma", "mma", "simt", "simt"]
+
+
+@pytest.mark.parametrize("b,s,h,p,n,dtype,out", SSD_CASES)
 def test_ssd_scan_matches_the_plain_versions(card, b, s, h, p, n, dtype,
                                              out):
     from repro_torch.kernels.ssd_scan import ref as ssd_ref
@@ -535,10 +540,84 @@ def test_ssd_scan_masks_before_the_exponential(card):
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
 
     args = _ssd_inputs(1, 4096, 2, 64, 128, torch.bfloat16, card)
+    assert ssd_kernel.route(torch.bfloat16, 64, 128) == "mma"
+    before = ssd_kernel.ssd_scan.route_launches["mma"]
     y = ssd_kernel.ssd_scan(*args, out_dtype=torch.float32)
+    assert ssd_kernel.ssd_scan.route_launches["mma"] == before + 1
     want = ssd_ref.ssd_chunked_ref(*args, chunk=256)
     assert torch.isfinite(y).all()
     assert _ssd_gate(y, want) <= 1.0
+
+
+@pytest.mark.parametrize("case,want", list(zip(SSD_CASES, SSD_ROUTES)))
+def test_ssd_scan_route_of_each_case(card, case, want):
+    """bf16 heads of P, N in {64, 128} take the tensor cores, the rest the
+    scalar kernel; the launch is counted under its route."""
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
+
+    b, s, h, p, n, dtype, out = case
+    assert ssd_kernel.route(dtype, p, n) == want
+    before = dict(ssd_kernel.ssd_scan.route_launches)
+    ssd_kernel.ssd_scan(*_ssd_inputs(b, s, h, p, n, dtype, card),
+                        out_dtype=out)
+    torch.cuda.synchronize()
+    after = ssd_kernel.ssd_scan.route_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        r: int(r == want) for r in ("simt", "mma")}
+
+
+@pytest.mark.parametrize("a_log", [None, (-1, 0.3)])
+@pytest.mark.parametrize("b,s,h,p,n,out", [
+    (2, 256, 4, 64, 128, torch.float32),    # mamba2's head
+    (1, 192, 2, 128, 128, torch.float32),   # jamba's head
+    (1, 100, 3, 64, 128, torch.float32),    # ragged last sub-chunk
+    (1, 130, 2, 128, 64, torch.float32),    # N 64, ragged
+    (2, 64, 1, 64, 64, torch.float32),      # one sub-chunk
+    (2, 256, 4, 64, 128, torch.bfloat16),   # y in bf16
+])
+def test_ssd_scan_mma_route_matches_the_plain_versions(card, b, s, h, p, n,
+                                                       out, a_log):
+    """The tensor-core route within the elementwise gate of the float32
+    chunked form (at the kernel's 64 and the model's 256), the per-token
+    recurrence and the split-bf16 plain version in the kernel's order; a
+    bf16 y within one bf16 rounding of them."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
+
+    args = _ssd_inputs(b, s, h, p, n, torch.bfloat16, card, a_log=a_log)
+    assert ssd_kernel.route(torch.bfloat16, p, n) == "mma"
+    y = ssd_kernel.ssd_scan(*args, out_dtype=out)
+    torch.cuda.synchronize()
+    assert y.dtype == out and y.shape == (b, s, h, p)
+    wants = [ssd_ref.ssd_chunked_ref(*args, chunk=64),
+             ssd_ref.ssd_chunked_ref(*args, chunk=256),
+             ssd_ref.ssd_ref(*args)[0],
+             ssd_ref.ssd_chunked_split(*args, pieces=2)]
+    for want in wants:
+        if out == torch.bfloat16:   # one bf16 rounding on top of the gate
+            tol = (2.0**-8 + 1e-4) * want.abs() + 1e-5 * want.abs().max()
+            assert bool(((y.float() - want).abs() <= tol).all())
+        else:
+            assert _ssd_gate(y, want) <= 1.0
+
+
+def test_ssd_scan_simt_route_on_request(card):
+    """``use="simt"`` runs the scalar kernel on operands the mma route
+    would take (chip_smoke.py times the two); "mma" on operands it does
+    not take is refused."""
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
+
+    args = _ssd_inputs(1, 128, 2, 64, 128, torch.bfloat16, card)
+    before = dict(ssd_kernel.ssd_scan.route_launches)
+    y = ssd_kernel.ssd_scan(*args, out_dtype=torch.float32, use="simt")
+    torch.cuda.synchronize()
+    assert ssd_kernel.ssd_scan.route_launches["simt"] == before["simt"] + 1
+    assert ssd_kernel.ssd_scan.route_launches["mma"] == before["mma"]
+    assert _ssd_gate(y, ssd_ref.ssd_chunked_ref(*args, chunk=64)) <= 1.0
+    small = _ssd_inputs(1, 64, 1, 8, 16, torch.bfloat16, card)
+    with pytest.raises(ValueError, match="does not take"):
+        ssd_kernel.ssd_scan(*small, use="mma")
 
 
 def test_ssd_scan_refuses_what_the_kernel_does_not_take(card):

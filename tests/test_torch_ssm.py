@@ -9,6 +9,14 @@ interpret mode at tests/test_kernels.py's shapes (bfloat16 5e-2, float32
 1e-4, its bounds), including a ragged S; the per-token ``ssd_ref`` against
 the reference's (y and final state, 1e-5).
 
+The CUDA kernel's tensor-core order: ``ref.ssd_chunked_split`` (two bf16
+pieces of each inexact operand) against the Pallas kernel in interpret
+mode and the float32 chunked form within chip_smoke.py's phase-12 gate
+(1e-4 |y| + 1e-5 max|y| elementwise) at mamba2's and jamba's heads, with
+A_log 0 and ~ U(-1, 0.3), and at a ragged S against the per-token
+recurrence; one bf16 piece lands outside the gate; the kernel's route
+choice.
+
 The layer: ``apply_ssm`` against the reference's on its own parameters
 (float32 1e-4, bfloat16 5e-2); ``decode_ssm`` token by token against
 ``apply_ssm`` (float32 1e-4; tests/test_layers.py holds the reference's
@@ -146,6 +154,105 @@ def test_ssd_op_takes_a_ragged_last_chunk():
     naive, _ = ref.ssd_ref(*_t(arrays).values())
     np.testing.assert_allclose(got.numpy(), naive.numpy(), rtol=1e-4,
                                atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's tensor-core order: split-bf16 products
+# ---------------------------------------------------------------------------
+
+def _bf16_inputs(seed, b, s, h, p, n, a_log):
+    """The scan's operands as the mma route sees them: x, B, C rounded to
+    bf16 (held in float32, so the Pallas kernel writes a float32 y); dt =
+    softplus(N(0, 0.25)) ~ 0.7 as the model's zero-init bias gives; A_log
+    0 (mamba2's init) or ~ U(-1, 0.3)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    bf = lambda v: np.asarray(torch.from_numpy(v).to(torch.bfloat16)
+                              .float())
+    dt = np.log1p(np.exp(0.5 * f(b, s, h))).astype(np.float32)
+    a = (np.zeros(h, np.float32) if a_log == "zero"
+         else rng.uniform(-1, 0.3, h).astype(np.float32))
+    return dict(xh=bf(f(b, s, h, p)), dt=dt, a_log=a, b_mat=bf(f(b, s, n)),
+                c_mat=bf(f(b, s, n)), d_skip=f(h))
+
+
+def _gate(y, want) -> float:
+    """Worst |y - want| / (1e-4 |want| + 1e-5 max|want|), elementwise:
+    chip_smoke.py's phase-12 gate on the CUDA kernel."""
+    want = torch.from_numpy(np.array(want, np.float32))
+    tol = 1e-4 * want.abs() + 1e-5 * want.abs().max()
+    return ((y.float() - want).abs() / tol).max().item()
+
+
+def _pallas(arrays):
+    """The JAX package's Pallas kernel in interpret mode at 64-row chunks."""
+    return jax_ssd_ops.ssd(*map(jnp.asarray, arrays.values()),
+                           impl="pallas", interpret=True, chunk=64)
+
+
+@pytest.mark.parametrize("a_log", ["zero", "uniform"])
+@pytest.mark.parametrize("b,s,h,p,n", [
+    (1, 256, 2, 64, 128),     # mamba2-2.7b's head
+    (1, 128, 2, 128, 128),    # jamba's hybrid head
+])
+def test_split_order_matches_the_pallas_kernel(b, s, h, p, n, a_log):
+    """The mma route's plain version (two bf16 pieces of each inexact
+    operand) within the phase-12 gate of the TPU kernel and of the float32
+    chunked form at the model's chunk 256."""
+    arrays = _bf16_inputs(7, b, s, h, p, n, a_log)
+    got = ref.ssd_chunked_split(*_t(arrays).values(), pieces=2)
+    assert got.dtype == torch.float32 and got.shape == (b, s, h, p)
+    assert _gate(got, _pallas(arrays)) <= 1.0
+    chunked = ref.ssd_chunked_ref(*_t(arrays).values(), chunk=256)
+    assert _gate(got, chunked.numpy()) <= 1.0
+
+
+@pytest.mark.parametrize("a_log", ["zero", "uniform"])
+def test_split_order_takes_a_ragged_last_sub_chunk(a_log):
+    """S = 100: the last sub-chunk is 36 rows.  The Pallas kernel takes no
+    ragged S, so the JAX package's per-token recurrence is the reference."""
+    arrays = _bf16_inputs(8, 1, 100, 3, 64, 128, a_log)
+    got = ref.ssd_chunked_split(*_t(arrays).values())
+    want = jax_ssd_ops.ssd(*map(jnp.asarray, arrays.values()),
+                           impl="reference")
+    assert _gate(got, want) <= 1.0
+    chunked = ref.ssd_chunked_ref(*_t(arrays).values(), chunk=64)
+    assert _gate(got, chunked.numpy()) <= 1.0
+
+
+def test_one_bf16_pass_misses_the_gate():
+    """One bf16 piece of each inexact operand (a plain bf16 mma) lands
+    tens of times outside the gate, so the gate tells a one-pass kernel
+    from the two-pass one."""
+    arrays = _bf16_inputs(7, 1, 256, 2, 64, 128, "zero")
+    want = _pallas(arrays)
+    assert _gate(ref.ssd_chunked_split(*_t(arrays).values(), pieces=1),
+                 want) > 10.0
+
+
+def test_bf16_pieces_are_bf16_and_sum_to_the_value():
+    v = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(64, 64)).astype(np.float32)) * 1e3
+    for k, rel in ((1, 2.0**-8), (2, 2.0**-16), (3, 2.0**-24)):
+        pieces = ref.bf16_pieces(v, k)
+        assert len(pieces) == k
+        for piece in pieces:
+            assert torch.equal(piece, piece.to(torch.bfloat16).float())
+        assert bool(((sum(pieces) - v).abs() <= rel * v.abs()).all())
+
+
+@pytest.mark.parametrize("dtype,p,n,want", [
+    (torch.bfloat16, 64, 128, "mma"),      # mamba2-2.7b
+    (torch.bfloat16, 128, 128, "mma"),     # jamba
+    (torch.bfloat16, 64, 64, "mma"),
+    (torch.float32, 64, 128, "simt"),      # f32 keeps f32 accuracy
+    (torch.bfloat16, 8, 16, "simt"),       # the card tests' odd widths
+    (torch.bfloat16, 16, 8, "simt"),
+    (torch.bfloat16, 96, 128, "simt"),
+])
+def test_route_picks_the_tensor_cores_for_bf16_heads_of_64_and_128(
+        dtype, p, n, want):
+    assert kernel.route(dtype, p, n) == want
 
 
 # ---------------------------------------------------------------------------
