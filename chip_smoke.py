@@ -25,9 +25,14 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    bit-identical to ``table[idx]``; ``ops.gather_bag`` over the graph's
    padded CSR at depths 1, 2, 4 within its stated tolerance; and
    ``cache_grid.hit_series`` over the §3.4 profiling grid (132
-   configurations) for four 16,384-address windows of Listing 1's feature
-   loads, equal to the plain version and holding the LRU stack property;
-7. time each of those kernels against its plain version and library call;
+   configurations, 4 (line, sets) groups, 60 stack chains) for four
+   16,384-address windows of Listing 1's feature loads, equal to the plain
+   version (window 0 on the card, the last on the host), equal on every
+   window to the stack version in the kernels' order (host), and holding
+   the LRU stack property;
+7. time each of those kernels against its plain version and library call
+   (the profiler by graph replay per window, eager beside, with each
+   window's longest chain computed on the host);
 8. hold the flash-attention kernel against its plain version at the
    training shape (B 4 x H 12 x S 4,096 x D 128, causal, bf16 and f32) and
    at non-causal, window-96, GQA 12/2, query-offset and ragged-tail
@@ -49,7 +54,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     serving shapes (decode 8 tokens, prefill chunk 64) and 4 groups of
     1,024 tokens, with the slots of dbrx's own top-4 routing at capacity
     factor 1.25; time them and ``index_copy_`` / ``embedding_bag`` by
-    CUDA-graph replay (eager events beside) against the bound;
+    CUDA-graph replay (eager events beside) against the bound, and print
+    the blocks combine splits each row into;
 11. serve full-width dbrx-132b, 8 of its 40 layers, through the engine as
     in phase 4, with the paged-attention, dispatch and combine counters
     set to 0 just before and read just after (dispatch and combine once a
@@ -587,18 +593,26 @@ def phase_runahead(inp: dict, grid) -> dict:
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
     host = cache_grid.hit_series(inp["windows"][-1], grid, device="cpu")
-    for w, other in ((0, want), (N_WINDOWS - 1, host)):
+    # the plain version in the kernels' order (one capped LRU stack per
+    # (line, sets) group and set), on the host, for every window
+    stack = [(w, cache_grid.hit_series_stack_ref(
+        cache_grid.as_int32(a, "cpu"), grid))
+        for w, a in enumerate(inp["windows"])]
+    for w, other in [(0, want), (N_WINDOWS - 1, host)] + stack:
         wrong = int((hits[w].cpu() != other.cpu()).sum().item())
         errs["cache_grid_scan"] = max(errs["cache_grid_scan"], float(wrong))
         if wrong:
             raise AssertionError(f"cache_grid_scan window {w}: {wrong} of "
                                  f"{n_cfg * t_len} hits differ from the "
                                  f"plain version on {other.device}")
+    groups = cache_grid.config_groups(grid)
     print(f"phase 6: cache grid {n_cfg} configurations x {t_len} accesses "
-          f"x {N_WINDOWS} windows: misses monotone in ways at every line "
-          f"size; kernel == plain exactly on window 0 (plain on the card) "
-          f"and window {N_WINDOWS - 1} (plain on the host); misses at 8 ways "
-          f"(lines 16, 32, 64, 128) per window "
+          f"x {N_WINDOWS} windows ({len(groups)} (line, sets) groups, "
+          f"{groups.chains} (group, set) chains): misses monotone in ways at "
+          f"every line size; kernel == plain exactly on window 0 (plain on "
+          f"the card) and window {N_WINDOWS - 1} (plain on the host), and == "
+          f"the stack version (kernel order, host) on all {N_WINDOWS} "
+          f"windows; misses at 8 ways (lines 16, 32, 64, 128) per window "
           f"{[m[8].tolist() for m in misses]}", flush=True)
     return dict(launches=launches, errs=errs, grid_plain_ms=plain_ms,
                 grid_misses=misses)
@@ -699,10 +713,19 @@ def phase_runahead_times(inp: dict, grid, stats: dict,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=library_ms)
 
-    a = cache_grid.as_int32(inp["windows"][0], "cuda")
+    windows = [cache_grid.as_int32(w, "cuda") for w in inp["windows"]]
+    a = windows[0]
     t_len, n_cfg = a.shape[0], len(grid)
-    ms = time_ms(lambda: cache_grid.cache_grid_scan(a, grid), flush,
-                 iters=20)
+    window_ms = [graph_ms(lambda: cache_grid.cache_grid_scan(w, grid), flush)
+                 for w in windows]
+    ms = window_ms[0]
+    eager_ms = time_ms(lambda: cache_grid.cache_grid_scan(a, grid), flush)
+    groups = cache_grid.config_groups(grid)
+    chains = [cache_grid.longest_chain(w, grid) for w in inp["windows"]]
+    # the same call on a one-address window (a chain of 1): what a call
+    # costs besides its chain, so (ms - floor) / chain is a step's cost
+    one = torch.full_like(a, 4096)
+    floor_ms = graph_ms(lambda: cache_grid.cache_grid_scan(one, grid), flush)
     # each step compares the tag against n_ways ways, and on a miss the
     # stamps of n_ways ways; bytes: the addresses in, one byte per hit out
     ways = grid.ways.astype(np.int64)
@@ -712,14 +735,19 @@ def phase_runahead_times(inp: dict, grid, stats: dict,
     t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
     t_ops = ops_count / F32_FLOPS_PER_S * 1e3
     plain_ms = stats["grid_plain_ms"]
-    print(f"phase 7: cache_grid_scan T={t_len} x C={n_cfg} = "
-          f"{t_len * n_cfg} steps: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"(one run, phase 6) "
+    print(f"phase 7: cache_grid_scan T={t_len} x C={n_cfg}: ms={ms:.4f} "
+          f"(graph replay, window 0; eager {eager_ms:.4f}) ms by window "
+          f"{[round(x, 4) for x in window_ms]} (graph replay) "
+          f"plain_ms={plain_ms:.4f} (one run, phase 6) "
           f"bound_ms={max(t_bytes, t_ops):.6f} ({n_bytes} bytes, "
           f"{ops_count} compares) "
-          f"{'bytes' if t_bytes >= t_ops else 'operations'}-bound; the "
-          f"scan is a dependent chain of {t_len} steps per configuration; "
-          f"{card}", flush=True)
+          f"{'bytes' if t_bytes >= t_ops else 'operations'}-bound; "
+          f"{len(groups)} groups, {groups.chains} chains; longest chain by "
+          f"window {chains} steps (non-repeat accesses of one (group, set) "
+          f"stack; one configuration's scan was {t_len}); a one-address "
+          f"window (chain 1) {floor_ms:.4f} ms (graph replay), so "
+          f"{(ms - floor_ms) * 1e6 / chains[0]:.1f} ns a step of window 0's "
+          f"chain; {card}", flush=True)
     entries["cache_grid_scan"] = dict(
         ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
         bound_by="bytes" if t_bytes >= t_ops else "operations",
@@ -1090,6 +1118,10 @@ def phase_moe_kernels(flush: torch.Tensor) -> dict:
     d, k = 6144, 4
     gen = torch.Generator(device="cuda").manual_seed(21)
     card = card_line()
+    one = flush[:1]
+    print(f"phase 10: graph-replay floor: a one-element fill kernel "
+          f"{graph_ms(lambda: one.fill_(1), flush):.4f} ms; {card}",
+          flush=True)
     out = {}
     for sname, t, group in (("decode", 8, 8), ("prefill chunk", 64, 64),
                             ("grouped", 4096, 1024)):
@@ -1134,6 +1166,7 @@ def phase_moe_kernels(flush: torch.Tensor) -> dict:
                                                 device="cuda")])
             bag_idx = torch.where(kept, slot, n_slots).long()
             w_lib = w.to(dtype)
+            parts = kernel.combine_parts(t, d * x.element_size())
             kern = {"dispatch": lambda: kernel.dispatch(x, slot, n_slots),
                     "combine": lambda: kernel.combine(ye, slot, w)}
             lib = {"dispatch": lambda: lib_out.index_copy_(0, dest, src),
@@ -1174,7 +1207,9 @@ def phase_moe_kernels(flush: torch.Tensor) -> dict:
                       f"(graph replay; eager {lib_eager_ms:.4f}; {lib_name})"
                       f" bound_ms={bound:.6f} ({n_bytes} bytes, {flops} "
                       f"flops) {by}-bound: {bound / ms:.1%} of the bound; "
-                      f"kernel / library {ms / lib_ms:.3f}; {card}",
+                      f"kernel / library {ms / lib_ms:.3f}"
+                      + (f"; {parts} parts a row ({t * parts} blocks)"
+                         if kname == "combine" else "") + f"; {card}",
                       flush=True)
                 if sname == "decode" and dtype == torch.bfloat16:
                     out[f"moe_{kname}"] = dict(

@@ -16,8 +16,8 @@
 //     products and sums in f32 in k order (each product rounded, then
 //     added: the plain version's order, so the two agree bit for bit),
 //     rounded once to ye's type.  The TPU kernel keeps `depth` tokens'
-//     rows in flight; here a block takes one token, which timed faster on
-//     the H100 than 2, 3 or 4 at every shape the MoE path gives it.
+//     rows in flight; here a block takes a part of one token's row, and
+//     the parts of all tokens fill the card (below).
 //
 // Bound on this card: bytes, both.  Dispatch does no arithmetic; combine
 // does 2 flops per fetched element, far below the ~20 flops per byte
@@ -37,17 +37,22 @@
 //     scans' extra reads stay under 1/16 of the output; the scan loads 16
 //     bytes at a time.  When the blocks are too few to fill the card
 //     (264, two an SM), each row's columns are split over as many blocks
-//     as make up the difference (5 at dbrx's decode, 64 blocks).  One
+//     as make up the difference (5 at dbrx's decode, 64 blocks; the
+//     split is split_rows, which combine shares).  One
 //     launch, because at dbrx's decode shape (~0.9 MB) each graph node
 //     (a memset of flags, a scatter, a zeroing pass) costs more than the
 //     bytes: three took longer than index_copy_.
-//   * combine gives each token to one block.  The block reads the token's
-//     K slots and weights in one coalesced load into shared memory, then
-//     each thread issues the loads of its 16-byte chunk of every kept row
-//     before it adds any of them, so K row reads are in flight a thread,
-//     and the many blocks an SM holds keep more in flight.  A dropped
-//     slot is never fetched: the TPU kernel fetches row 0 and multiplies
-//     it by 0, which costs a read and turns an inf in row 0 into NaN.
+//   * combine splits each token's row of 16-byte chunks over as many
+//     blocks (parts) as fill the card, with at least kMinPartChunks chunks
+//     a part: at dbrx's decode shape (8 tokens of 768 chunks) 24 parts of
+//     32 chunks, 192 blocks of one warp, a chunk a thread.  Each thread
+//     reads its token's K slots and weights straight into registers
+//     (broadcast loads, no shared memory and no barrier), then issues the
+//     loads of its chunk of every kept row before it adds any of them: two
+//     dependent trips to memory in all, slots then rows.  With many tokens
+//     (4 x 1,024) a block takes a whole row, 256 threads.  A dropped slot
+//     is never fetched: the TPU kernel fetches row 0 and multiplies it by
+//     0, which costs a read and turns an inf in row 0 into NaN.
 // Rows must be a multiple of 16 bytes and 16-byte aligned; kept slots must
 // be distinct and lie in [0, n_slots) (the contract; not checked here).
 
@@ -61,8 +66,28 @@ constexpr int kDispatchThreads = 128;  // most threads a token's block
 constexpr int kCombineThreads = 256;
 constexpr int kMaxFanin = 8;        // K the kernels take
 constexpr int kMaxRange = 4096;     // rows a dispatch block zeroes at most
-constexpr int kFillBlocks = 264;    // dispatch blocks that fill an H100: 2
-                                    // a streaming multiprocessor
+constexpr int kFillBlocks = 264;    // blocks that fill an H100: 2 a
+                                    // streaming multiprocessor
+constexpr int kMinPartChunks = 32;  // 16-byte chunks a part takes at least
+
+// How a launch of `blocks` rows of `chunks` 16-byte chunks splits each
+// row's columns when the rows are too few to fill the card: `parts` blocks
+// a row, `part_chunks` chunks each, `threads` a block (a warp per 32
+// chunks, at most max_threads).
+struct Split {
+  int parts, part_chunks, threads;
+};
+
+Split split_rows(int blocks, int chunks, int max_threads) {
+  const int max_parts =
+      chunks / kMinPartChunks > 1 ? chunks / kMinPartChunks : 1;
+  int parts = (kFillBlocks + blocks - 1) / blocks;
+  parts = parts < 1 ? 1 : parts > max_parts ? max_parts : parts;
+  const int part_chunks = (chunks + parts - 1) / parts;
+  const int warps = (part_chunks + 31) / 32;   // a short row, fewer threads
+  const int threads = warps * 32 < max_threads ? warps * 32 : max_threads;
+  return {(chunks + part_chunks - 1) / part_chunks, part_chunks, threads};
+}
 
 __device__ __forceinline__ void mark(unsigned char* filled, int slot,
                                      long long base, int n_rows) {
@@ -174,33 +199,35 @@ template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 combine_kernel(const uint4* __restrict__ ye, const int* __restrict__ slot,
                const float* __restrict__ w, uint4* __restrict__ y, int fanin,
-               int chunks) {
-  __shared__ int s_slot[kMaxFanin];
-  __shared__ float s_w[kMaxFanin];
+               int chunks, int part_chunks) {
   const size_t t = blockIdx.x;
-  if (threadIdx.x < fanin) {               // one coalesced load of the
-    s_slot[threadIdx.x] = slot[t * fanin + threadIdx.x];    // token's slots
-    s_w[threadIdx.x] = w[t * fanin + threadIdx.x];          // and weights
+  const int c0 = blockIdx.y * part_chunks;      // this block's columns
+  const int c1 = min(chunks, c0 + part_chunks);
+  int src[kMaxFanin];                           // the token's slots and
+  float wk[kMaxFanin];                          // weights, broadcast loads
+#pragma unroll
+  for (int k = 0; k < kMaxFanin; ++k) {
+    src[k] = k < fanin ? __ldg(slot + t * fanin + k) : -1;
+    wk[k] = k < fanin ? __ldg(w + t * fanin + k) : 0.f;
   }
-  __syncthreads();
   constexpr int kE = Chunk<T>::kElems;
-  for (int c = threadIdx.x; c < chunks; c += kCombineThreads) {
+  for (int c = c0 + threadIdx.x; c < c1; c += blockDim.x) {
     uint4 rows[kMaxFanin];
 #pragma unroll
     for (int k = 0; k < kMaxFanin; ++k) {  // every kept row in flight first
-      if (k < fanin && s_slot[k] >= 0)
-        rows[k] = __ldg(ye + static_cast<size_t>(s_slot[k]) * chunks + c);
+      if (src[k] >= 0)
+        rows[k] = __ldg(ye + static_cast<size_t>(src[k]) * chunks + c);
     }
     float acc[kE], f[kE];
 #pragma unroll
     for (int e = 0; e < kE; ++e) acc[e] = 0.f;
 #pragma unroll
     for (int k = 0; k < kMaxFanin; ++k) {
-      if (k < fanin && s_slot[k] >= 0) {
+      if (src[k] >= 0) {
         Chunk<T>::unpack(rows[k], f);
 #pragma unroll
         for (int e = 0; e < kE; ++e)
-          acc[e] = __fadd_rn(acc[e], __fmul_rn(s_w[k], f[e]));
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(wk[k], f[e]));
       }
     }
     y[t * chunks + c] = Chunk<T>::pack(acc);
@@ -233,18 +260,11 @@ int moe_dispatch_launch(const void* x, const void* slot, void* out,
   const int zero_blocks = (n_slots + range - 1) / range;
   const int blocks = tokens > zero_blocks ? tokens : zero_blocks;
   // too few blocks to fill the card (decode): split the rows' columns
-  const int max_parts = chunks / 32 > 1 ? chunks / 32 : 1;
-  int parts = (kFillBlocks + blocks - 1) / blocks;
-  parts = parts < 1 ? 1 : parts > max_parts ? max_parts : parts;
-  const int part_chunks = (chunks + parts - 1) / parts;
-  parts = (chunks + part_chunks - 1) / part_chunks;
-  const int warps = (part_chunks + 31) / 32;  // a short row, fewer threads
-  const int threads =
-      warps * 32 < kDispatchThreads ? warps * 32 : kDispatchThreads;
-  dispatch_kernel<<<dim3(blocks, parts), threads, range, s>>>(
+  const Split sp = split_rows(blocks, chunks, kDispatchThreads);
+  dispatch_kernel<<<dim3(blocks, sp.parts), sp.threads, range, s>>>(
       static_cast<const uint4*>(x), static_cast<const int*>(slot),
       static_cast<uint4*>(out), tokens, fanin, chunks, n_slots, range,
-      part_chunks);
+      sp.part_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -262,15 +282,23 @@ int moe_combine_launch(int dtype, const void* ye, const void* slot,
   const auto* ww = static_cast<const float*>(w);
   auto* o = static_cast<uint4*>(y);
   const int chunks = row_bytes / 16;
+  const Split sp = split_rows(tokens, chunks, kCombineThreads);
+  const dim3 grid(tokens, sp.parts);
   if (dtype == 0)
-    combine_kernel<float><<<tokens, kCombineThreads, 0, s>>>(a, sl, ww, o,
-                                                             fanin, chunks);
+    combine_kernel<float><<<grid, sp.threads, 0, s>>>(a, sl, ww, o, fanin,
+                                                      chunks, sp.part_chunks);
   else if (dtype == 1)
-    combine_kernel<__nv_bfloat16><<<tokens, kCombineThreads, 0, s>>>(
-        a, sl, ww, o, fanin, chunks);
+    combine_kernel<__nv_bfloat16><<<grid, sp.threads, 0, s>>>(
+        a, sl, ww, o, fanin, chunks, sp.part_chunks);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The parts a combine launch splits each token's row into (its grid's
+// second dimension), for tokens > 0.
+int moe_combine_parts(int tokens, int row_bytes) {
+  return split_rows(tokens, row_bytes / 16, kCombineThreads).parts;
 }
 
 }  // extern "C"

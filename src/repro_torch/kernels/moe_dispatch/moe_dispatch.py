@@ -28,6 +28,8 @@ _ptr, _i32 = ctypes.c_void_p, ctypes.c_int
 DISPATCH_ARGTYPES = [_ptr] * 3 + [_i32] * 4 + [_ptr]
 # moe_combine_launch(dtype, ye, slot, w, y, tokens, fanin, row_bytes, stream)
 COMBINE_ARGTYPES = [_i32] + [_ptr] * 4 + [_i32] * 3 + [_ptr]
+# moe_combine_parts(tokens, row_bytes)
+PARTS_ARGTYPES = [_i32, _i32]
 
 
 @functools.cache
@@ -35,8 +37,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("moe_dispatch")
     lib.moe_dispatch_launch.argtypes = DISPATCH_ARGTYPES
     lib.moe_combine_launch.argtypes = COMBINE_ARGTYPES
+    lib.moe_combine_parts.argtypes = PARTS_ARGTYPES
     lib.moe_dispatch_launch.restype = ctypes.c_int
     lib.moe_combine_launch.restype = ctypes.c_int
+    lib.moe_combine_parts.restype = ctypes.c_int
     return lib
 
 
@@ -118,9 +122,10 @@ def dispatch(x: torch.Tensor, slot: torch.Tensor,
 def combine(ye: torch.Tensor, slot: torch.Tensor,
             weights: torch.Tensor) -> torch.Tensor:
     """y[t] = sum_k w[t,k] ye[slot[t,k]] over the kept choices, in float32
-    in k order, cast to ye's type, one token a block.  ye [n_slots, D]
-    float32 or bfloat16; slot int32 and weights float32 [T, K], K <= 8 ->
-    [T, D]."""
+    in k order, cast to ye's type.  Each token's row is split over
+    :func:`combine_parts` blocks, enough to fill the card when the tokens
+    are few.  ye [n_slots, D] float32 or bfloat16; slot int32 and weights
+    float32 [T, K], K <= 8 -> [T, D]."""
     who = "moe_combine"
     device = _check_device(who, ye=ye, slot=slot, weights=weights)
     row_bytes = _check_rows(who, "ye", ye)
@@ -146,6 +151,16 @@ def combine(ye: torch.Tensor, slot: torch.Tensor,
     _raise_on(who, err)
     combine.launches += 1
     return out
+
+
+def combine_parts(tokens: int, row_bytes: int) -> int:
+    """The blocks that :func:`combine` splits each of ``tokens`` rows of
+    ``row_bytes`` into (the launch's own arithmetic; builds the library)."""
+    if tokens < 1 or row_bytes < 16 or row_bytes % 16:
+        raise ValueError(f"combine_parts: want tokens >= 1 and rows of a "
+                         f"positive multiple of 16 bytes, got {tokens} and "
+                         f"{row_bytes}")
+    return _lib().moe_combine_parts(tokens, row_bytes)
 
 
 dispatch.launches = 0

@@ -9,7 +9,15 @@ ways axis).  The last two work on Python integers without the reference
 profiler's int32 cast; addresses at or past 2**31 are therefore held
 against ``jaxcache`` alone, which the port follows: int32 wrap, floor
 division, and tags that start at -1.
+
+The kernels' own order, ``hit_series_stack_ref`` (one capped LRU stack
+per (line, sets) group and set), is held exactly against ``jaxcache`` and
+the plain version over the same cases, the int32-wrap streams, a grid
+whose groups mix set counts at one line size, and one-address streams.
 """
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -17,6 +25,7 @@ import torch
 from repro.core.cgra import _batch_engine, jaxcache
 from repro.core.cgra.cache import CacheConfig, OracleCache
 from repro_torch.core.cgra import cache_grid
+from repro_torch.kernels import _build
 
 
 def _port_hits(addrs, way_bytes, ways, lines) -> np.ndarray:
@@ -124,3 +133,109 @@ def test_config_grid_is_the_references():
             assert getattr(port, f).dtype == getattr(ref, f).dtype
         assert (port.max_sets, port.max_ways, len(port)) == \
             (ref.max_sets, ref.max_ways, len(ref))
+
+
+def _wrap_stream(seed):
+    """test_addresses_past_2_31_follow_the_int32_wrap's stream."""
+    rng = np.random.default_rng(seed)
+    addrs = rng.integers(0, 1 << 12, 400)
+    addrs[::3] += 2**31
+    addrs[::7] = 2**32 - 1 - rng.integers(0, 40, len(addrs[::7]))
+    addrs[::11] += 2**33
+    return addrs
+
+
+def _mixed_grid(module):
+    """A grid no ``build`` gives: line 16 at 32 and 8 sets, line 64 at 8
+    and 2, line 1 at 1 set (every address its own tag), and ways 0."""
+    lines = [16, 16, 64, 64, 32, 16, 1, 64]
+    sets = [32, 8, 8, 2, 16, 32, 1, 8]
+    ways = [4, 2, 8, 1, 0, 7, 3, 5]
+    return module.ConfigGrid(lines=np.asarray(lines, np.int32),
+                             sets=np.asarray(sets, np.int32),
+                             ways=np.asarray(ways, np.int32),
+                             max_sets=max(sets), max_ways=max(ways))
+
+
+def _built(way_bytes, ways, lines):
+    return lambda module: module.ConfigGrid.build(way_bytes, ways, lines)
+
+
+STACK_CASES = {
+    **{f"case_{name}": (make, _built(*rest))
+       for name, (make, *rest) in CASES.items()},
+    **{f"wrap_{seed}": (lambda rng, seed=seed: _wrap_stream(seed),
+                        _built(512, [0, 1, 2, 4, 8], [16, 32, 64, 128]))
+       for seed in (0, 1, 2)},
+    "mixed_sets": (lambda rng: rng.integers(-(1 << 11), 1 << 12, 500),
+                   _mixed_grid),
+    "mixed_sets_wrap": (lambda rng: _wrap_stream(3), _mixed_grid),
+    "one_address": (lambda rng: np.full(60, 1000),
+                    _built(512, list(range(33)), [16, 32, 64, 128])),
+    # tag -1 in every group: hits from the first access on
+    "one_address_tag_minus_1": (lambda rng: np.full(40, 2**32 - 1),
+                                _built(512, [0, 1, 2, 32], [16, 128])),
+    "one_access": (lambda rng: np.array([12345]), _mixed_grid),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STACK_CASES))
+def test_stack_version_equals_the_reference(case):
+    make, grid_of = STACK_CASES[case]
+    addrs = make(np.random.default_rng(0))
+    grid = grid_of(cache_grid)
+    a = cache_grid.as_int32(addrs, "cpu")
+    got = cache_grid.hit_series_stack_ref(a, grid)
+    assert got.dtype == torch.bool and got.shape == (len(grid), len(addrs))
+    np.testing.assert_array_equal(
+        got.numpy(), jaxcache.hit_series(np.asarray(addrs), grid_of(jaxcache)))
+    assert torch.equal(got, cache_grid.hit_series_ref(a, grid))
+
+
+def _chain_by_hand(addrs, line, sets):
+    """Longest run of non-repeats in one set, one access at a time."""
+    last, steps = {}, {}
+    for x in cache_grid.as_int32(addrs, "cpu").tolist():
+        s, tag = (x // line) % sets, (x // line) // sets
+        if last.get(s, -1) != tag:
+            steps[s] = steps.get(s, 0) + 1
+        last[s] = tag
+    return max(steps.values(), default=0)
+
+
+@pytest.mark.parametrize("case", ["profiling_grid", "repeated_addresses",
+                                  "wrap_1", "mixed_sets", "one_address",
+                                  "one_address_tag_minus_1"])
+def test_longest_chain_counts_the_non_repeats_of_a_set(case):
+    make, grid_of = STACK_CASES.get(case) or STACK_CASES[f"case_{case}"]
+    addrs = make(np.random.default_rng(0))
+    grid = grid_of(cache_grid)
+    groups = cache_grid.config_groups(grid)
+    want = max((_chain_by_hand(addrs, ln, st) for ln, st, cap in
+                zip(groups.lines, groups.sets, groups.caps) if cap > 0),
+               default=0)
+    assert cache_grid.longest_chain(addrs, grid) == want
+
+
+def test_config_groups_pair_line_and_sets():
+    grid = _mixed_grid(cache_grid)
+    groups = cache_grid.config_groups(grid)
+    # (16, 32), (16, 8), (64, 8), (64, 2), (32, 16), (1, 1): order of first
+    # appearance; the sixth configuration joins the first group
+    assert groups.lines.tolist() == [16, 16, 64, 64, 32, 1]
+    assert groups.sets.tolist() == [32, 8, 8, 2, 16, 1]
+    assert groups.caps.tolist() == [7, 2, 8, 1, 0, 3]
+    assert groups.of_config.tolist() == [0, 1, 2, 3, 4, 0, 5, 2]
+    assert groups.chains == 32 + 8 + 8 + 2 + 1
+    profiling = cache_grid.config_groups(
+        cache_grid.ConfigGrid.build(512, range(33), (16, 32, 64, 128)))
+    assert (len(profiling), profiling.chains) == (4, 60)
+
+
+def test_ctypes_signature_matches_the_source():
+    src = _build.SOURCES["cache_grid"].read_text()
+    params = re.search(r"int cache_grid_launch\((.*?)\)", src,
+                       re.S).group(1)
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in params.split(",")]
+    assert cache_grid.LAUNCH_ARGTYPES == want

@@ -14,7 +14,10 @@ cut, the wgmma route's tiles one past and one short (Sq, Sk around 128
 query rows and 64 keys, D 64 and 128), paged decode attention split across
 blocks at lengths that cross split boundaries, zero-length rows, rep 1 to 8,
 D 64, 80 and 128, pages of 16 and 32 and 8 rows of 4,096 tokens, MoE
-dispatch and combine at T = 1, K = 1 and 8, and with every choice dropped,
+dispatch and combine at T = 1, K = 1 and 8, and with every choice dropped
+(combine bit for bit at T 1 to 4,096, its rows split over blocks and not),
+the profiler's stack kernels at T 1, 31, 33 and 16,384, one-address and
+negative streams, max_ways 1 and 32 and 1,024 sets,
 and SSD scans of one chunk, one head, a ragged last chunk and
 4,096 rows whose decay exponents would overflow above the diagonal, on
 the scalar and the tensor-core route (P and N 64 and 128).  The
@@ -151,6 +154,56 @@ def test_cache_grid_kernel_equals_the_plain_version(card):
     assert torch.equal(got.cpu(), cache_grid.hit_series_ref(a, grid).cpu())
     assert torch.equal(got.cpu(), cache_grid.hit_series(addrs, grid,
                                                         device="cpu"))
+
+
+GRID_STREAMS = {
+    "uniform": lambda rng, t: rng.integers(0, 1 << 14, t),
+    "one_address": lambda rng, t: np.full(t, 4100),
+    # negative int32 after the wrap, and tag -1 (hits a cold set)
+    "negative": lambda rng, t: np.where(rng.random(t) < 0.5,
+                                        2**32 - 1 - rng.integers(0, 256, t),
+                                        rng.integers(0, 1 << 12, t) + 2**31),
+}
+GRIDS = {
+    "max_ways_1": ((1024, [0, 1], (16, 64)), 1),
+    "max_ways_32": ((512, [1, 3, 8, 32], (16, 32, 64, 128)), 32),
+}
+
+
+@pytest.mark.parametrize("grid_name", sorted(GRIDS))
+@pytest.mark.parametrize("stream", sorted(GRID_STREAMS))
+@pytest.mark.parametrize("t_len", [1, 31, 33, 16_384])
+def test_cache_grid_stack_kernels_are_exact(card, t_len, stream, grid_name):
+    """The stack and expand kernels against the plain step-by-step version
+    on the host and the stack version in the kernels' order."""
+    args, max_ways = GRIDS[grid_name]
+    grid = cache_grid.ConfigGrid.build(*args)
+    assert grid.max_ways == max_ways
+    addrs = GRID_STREAMS[stream](np.random.default_rng(t_len), t_len)
+    a = cache_grid.as_int32(addrs, card)
+    before = cache_grid.cache_grid_scan.launches
+    got = cache_grid.cache_grid_scan(a, grid)
+    torch.cuda.synchronize()
+    assert cache_grid.cache_grid_scan.launches == before + 1
+    host = a.cpu()
+    assert torch.equal(got.cpu(), cache_grid.hit_series_ref(host, grid))
+    assert torch.equal(got.cpu(), cache_grid.hit_series_stack_ref(host, grid))
+
+
+def test_cache_grid_kernel_takes_sets_past_shared_memory(card):
+    """1,024 sets x 32 ways of tags and stamps (262,144 bytes) were past
+    the shared memory of the old one-warp-per-configuration kernel; the
+    stacks live in registers, one warp per set."""
+    grid = cache_grid.ConfigGrid.build(16384, [32], [16])
+    assert (grid.max_sets, grid.max_ways) == (1024, 32)
+    rng = np.random.default_rng(9)
+    addrs = rng.integers(0, 1 << 20, 16_384)
+    addrs[1::3] = addrs[::3][:len(addrs[1::3])] + 16 * 1024  # same set
+    a = cache_grid.as_int32(addrs, card)
+    got = cache_grid.cache_grid_scan(a, grid)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), cache_grid.hit_series_ref(a.cpu(), grid))
+    assert got.any() and not got.all()
 
 
 def test_cache_grid_kernel_refuses_too_many_ways(card):
@@ -445,6 +498,43 @@ def test_combine_within_one_rounding(card, t, k, d, dtype, drop):
         tol = tol + 2.0**-8 * want.abs()
     assert out.dtype == dtype and out.shape == (t, d)
     assert bool(((out.float() - want).abs() <= tol).all())
+    if drop == 1.0:
+        assert out.abs().max().item() == 0.0
+
+
+COMBINE_BITS_CASES = [
+    (t, k, 6144, dtype, 0.25)
+    for t in (1, 8, 64, 4096) for k in (1, 4, 8)
+    for dtype in (torch.bfloat16, torch.float32)
+] + [
+    (8, 4, 96, torch.float32, 0.3),            # 24 chunks: one part
+    (8, 4, 6144, torch.bfloat16, 1.0),         # every choice dropped, parts
+    (4096, 4, 128, torch.bfloat16, 1.0),       # every choice dropped, one
+]
+
+
+@pytest.mark.parametrize("t,k,d,dtype,drop", COMBINE_BITS_CASES)
+def test_combine_is_bit_identical_to_its_plain_version(card, t, k, d, dtype,
+                                                       drop):
+    """Both round each f32 product, add in k order and round once to ye's
+    type, so they agree bit for bit, whether a token's row is split over
+    blocks (few tokens) or not."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
+    from repro_torch.kernels.moe_dispatch import ref as moe_ref
+
+    rng = np.random.default_rng(100 * t + k)
+    n_slots = t * k
+    ye = _table(n_slots, d, dtype, 3, card)
+    slot = torch.from_numpy(_slots(rng, t, k, n_slots, drop)).to(card)
+    w = torch.from_numpy(rng.random((t, k)).astype(np.float32)).to(card)
+    row_bytes = d * ye.element_size()
+    parts = moe_kernel.combine_parts(t, row_bytes)
+    assert (parts == 1) == (t >= 264 or row_bytes // 16 < 64)
+    before = moe_kernel.combine.launches
+    out = moe_kernel.combine(ye, slot, w)
+    torch.cuda.synchronize()
+    assert moe_kernel.combine.launches == before + 1
+    assert torch.equal(_bits(out), _bits(moe_ref.combine_ref(ye, slot, w)))
     if drop == 1.0:
         assert out.abs().max().item() == 0.0
 

@@ -64,6 +64,7 @@ def _c_signature(entry: str) -> list:
 def test_ctypes_signatures_match_the_source():
     assert kernel.DISPATCH_ARGTYPES == _c_signature("moe_dispatch_launch")
     assert kernel.COMBINE_ARGTYPES == _c_signature("moe_combine_launch")
+    assert kernel.PARTS_ARGTYPES == _c_signature("moe_combine_parts")
 
 
 def test_combine_limits_match_the_source():
