@@ -23,7 +23,8 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    OGBN-Arxiv-shaped table (169,343 x 128, float32 and bfloat16) for the
    destinations of a seeded power-law graph and for uniform indices, each
    bit-identical to ``table[idx]``; ``ops.gather_bag`` over the graph's
-   padded CSR at depths 1, 2, 4 within its stated tolerance; and
+   padded CSR at depths 1, 2, 4 within its stated tolerance of the plain
+   version and bit-identical to its kernel-order plain version; and
    ``cache_grid.hit_series`` over the §3.4 profiling grid (132
    configurations, 4 (line, sets) groups, 60 stack chains) for four
    16,384-address windows of Listing 1's feature loads, equal to the plain
@@ -31,8 +32,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    window to the stack version in the kernels' order (host), and holding
    the LRU stack property;
 7. time each of those kernels against its plain version and library call
-   (the profiler by graph replay per window, eager beside, with each
-   window's longest chain computed on the host);
+   (the bag and the profiler by graph replay, eager beside, with the bag's
+   row fetches against the padded bag's and its warps per SM, and each
+   profiler window's longest chain, computed on the host);
 8. hold the flash-attention kernel against its plain version at the
    training shape (B 4 x H 12 x S 4,096 x D 128, causal, bf16 and f32) and
    at non-causal, window-96, GQA 12/2, query-offset and ragged-tail
@@ -545,6 +547,8 @@ def phase_runahead(inp: dict, grid) -> dict:
                   f"bit-identical to table[idx]", flush=True)
         tol = bag_tolerance(table, inp["bag_idx"], inp["bag_w"])
         want = ref.gather_bag_ref(table, inp["bag_idx"], inp["bag_w"])
+        ordered = ref.gather_bag_ordered_ref(table, inp["bag_idx"],
+                                             inp["bag_w"])
         for depth in BAG_DEPTHS:
             out = ops.gather_bag(table, inp["bag_idx"], inp["bag_w"],
                                  depth=depth)
@@ -555,13 +559,21 @@ def phase_runahead(inp: dict, grid) -> dict:
                 raise AssertionError(f"gather_bag {name} depth {depth}: max "
                                      f"abs err {diff.max().item()}, worst "
                                      f"excess {(diff - tol).max().item()}")
+            if not bit_equal(out, ordered):
+                wrong = int((out.view(torch.uint8) != ordered.view(
+                    torch.uint8)).sum().item())
+                raise AssertionError(f"gather_bag {name} depth {depth}: "
+                                     f"{wrong} bytes differ from the "
+                                     f"kernel-order plain version")
         print(f"phase 6: gather_bag {name} S={table.shape[0]} "
               f"K={inp['fanin']} (largest out-degree) at depths "
               f"{BAG_DEPTHS}: max abs err {errs['gather_bag']:.3e} within "
               f"K * 2**-23 * sum|w x|"
               + ("" if dtype == torch.float32
-                 else " + one bfloat16 rounding (2**-7 |sum|)"), flush=True)
-        del tol, want, out
+                 else " + one bfloat16 rounding (2**-7 |sum|)")
+              + "; bit-identical to the kernel-order plain version "
+              "(rounded f32 products added in k order)", flush=True)
+        del tol, want, ordered, out
     hits = [cache_grid.hit_series(a, grid) for a in inp["windows"]]
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
@@ -638,6 +650,16 @@ def mshr_sweep(table, idx, flush) -> dict:
     return out
 
 
+def bag_fetches(idx: np.ndarray) -> int:
+    """Rows the bag kernel copies for idx [S, K] (host numpy): the distinct
+    indices of each batch of 32 entries of each output row."""
+    n = 0
+    for k0 in range(0, idx.shape[1], 32):
+        part = np.sort(idx[:, k0:k0 + 32], axis=1)
+        n += part.shape[0] + int((part[:, 1:] != part[:, :-1]).sum())
+    return n
+
+
 def phase_runahead_times(inp: dict, grid, stats: dict,
                          flush: torch.Tensor) -> dict:
     """Kernel, plain and library times of the runahead path's kernels, with
@@ -693,16 +715,32 @@ def phase_runahead_times(inp: dict, grid, stats: dict,
         t_ops = flops / F32_FLOPS_PER_S * 1e3
         idx64, w_lib = idx.long(), w.to(dtype)
         plain_ms = time_ms(lambda: ref.gather_bag_ref(table, idx, w), flush)
-        library_ms = time_ms(lambda: torch.nn.functional.embedding_bag(
-            idx64, table, per_sample_weights=w_lib, mode="sum"), flush)
-        depth_ms = {depth: time_ms(
-            lambda: kernel.gather_bag(table, idx, w, depth=depth), flush)
-            for depth in BAG_DEPTHS}
+
+        def library():
+            return torch.nn.functional.embedding_bag(
+                idx64, table, per_sample_weights=w_lib, mode="sum")
+
+        library_ms, library_eager = graph_ms(library, flush), time_ms(
+            library, flush)
+        depth_ms, eager_ms = {}, {}
+        for depth in BAG_DEPTHS:
+            def bag():
+                return kernel.gather_bag(table, idx, w, depth=depth)
+            depth_ms[depth] = graph_ms(bag, flush)
+            eager_ms[depth] = time_ms(bag, flush)
+        warps = {depth: kernel.bag_warps_per_sm(table, k, depth)
+                 for depth in BAG_DEPTHS}
+        fetches = bag_fetches(inp["bag_idx"].cpu().numpy())
         print(f"phase 7: gather_bag {name} S={s} K={k} distinct rows "
-              f"{distinct}: ms by depth "
+              f"{distinct}: row fetches {fetches} (the padded bag's {s * k}: "
+              f"{s * k / fetches:.2f}x fewer); warps per SM by depth "
+              f"{json.dumps(warps)}; ms by depth "
               f"{json.dumps({k_: round(v, 4) for k_, v in depth_ms.items()})}"
+              f" (graph replay, L2 cold; eager "
+              f"{json.dumps({k_: round(v, 4) for k_, v in eager_ms.items()})})"
               f" plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-              f"(embedding_bag, sum, per-sample weights) "
+              f"(embedding_bag, sum, per-sample weights, graph replay; eager "
+              f"{library_eager:.4f}) "
               f"bound_ms={max(t_bytes, t_ops):.4f} ({n_bytes} bytes, {flops} "
               f"flops) {'bytes' if t_bytes >= t_ops else 'operations'}-bound; "
               f"{card}", flush=True)
@@ -1571,9 +1609,12 @@ def main() -> int:
     print(f"phase 2: built {sorted(report)} in {time.monotonic() - t0:.2f} s",
           flush=True)
     for name, log in report.items():
+        kernel = "?"   # the entry function, as ptxas names it (mangled)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"phase 2: {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = line.split("'")[1] if "'" in line else line.strip()
+            elif "registers" in line or "spill" in line:
+                print(f"phase 2: {name}: {kernel}: {line.strip()}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     kstats = phase_kernel(flush)

@@ -17,10 +17,10 @@
 // Bound on this card: bytes, all three.  The gathers do no arithmetic; the
 // bag does 2 flops per fetched element, under 1 per byte of an f32 row,
 // far below the 20 flops per byte (67 TFLOP/s f32 over 3.35 TB/s) where
-// arithmetic would bound it.  What limits them is how many independent
-// row reads are in flight: each read is a dependent load (index, then
-// row), and device memory needs about (bandwidth x latency) bytes in
-// flight to run at its rate.  Design against that:
+// arithmetic would bound it.  What limits the gathers is how many
+// independent row reads are in flight: each read is a dependent load
+// (index, then row), and device memory needs about (bandwidth x latency)
+// bytes in flight to run at its rate.  Design against that:
 //   * the runahead gather keeps, per block, a `depth`-stage ring of
 //     [block_rows, row] tiles in shared memory, filled by cp.async (16 B a
 //     lane, one warp per row).  Tile k is written out, then tile k + depth
@@ -28,22 +28,52 @@
 //     block, the TPU kernel's window of DMAs, with no registers held;
 //   * the baseline gives each row to one warp that loads it into registers
 //     and stores it, with no ring: its reads in flight are what the warp
-//     scheduler happens to overlap;
-//   * the bag keeps a `depth`-stage ring of [K, row] tiles per block (one
-//     warp, one output row at a time) and accumulates the K rows in f32
-//     registers; only the output row goes back to device memory.
+//     scheduler happens to overlap.
 // The ring only runs ahead if the index stream does: the TPU kernel has
 // its indices in SMEM before the grid starts (scalar prefetch), while a
 // load of each index from device memory at issue time would put one
 // memory latency on every step of the ring.  So each warp of the
 // runahead gather reads its indices 32 at a time, one batch ahead
-// (Lookahead); the bag reads a row's K indices in one load.  Every thread
-// waits for its own copies (cp.async.wait_group) and reads back only the
-// 16-byte chunks it copied itself, so the rings need no barrier.  The
-// output is a byte-exact copy for the gathers at every depth.  Rows must
-// be a multiple of 16 bytes and 16-byte aligned, and a bag row at most
-// 2048 bytes (the wrapper checks); indices must lie in [0, V) (the
-// contract, not checked here).
+// (Lookahead), and the bag reads each batch of 32 entries (indices and
+// weights) one batch ahead of the batch it issues.  The gathers' output
+// is a byte-exact copy at every depth.
+//
+// The bag's bytes bound counts the indices, the weights, each distinct
+// table row once and the output.  What held it far above that bound was
+// the rows it fetched: a padded-CSR bag (Listing 1's GCN aggregate) names
+// the pad row (index 0, weight 0) in most of its entries and a few hub
+// rows in many.  At OGBN-Arxiv size 70% of the entries are the pad, and
+// fetching every entry's row moves 4.1x the rows that each output row's
+// distinct indices need, 3/4 of them two rows (the pad and the Zipf hub).
+// So the bag
+//   * fetches each distinct index of a batch of 32 entries once
+//     (__match_any_sync).  The pad and hub rows that are left then cost
+//     nothing measurable: copying them through L1 (cp.async.ca), keeping
+//     them in a warp's shared memory, or spreading them over 251 rows
+//     each left the time as it was;
+//   * gives each warp a ring of row slots that its batches in flight share
+//     (a batch waits only while the ring has too few free slots for it),
+//     sized for one batch of 32 distinct rows, not depth x K rows, so
+//     several warps fit a block and more rows are in flight on an SM.
+//     So `depth` is now an upper limit, not the number in flight: a warp
+//     has up to min(depth x ceil(K / 32), 8) batches in flight, and only
+//     while their distinct rows fit its ring of min(K, 32) slots; a row
+//     with many distinct indices holds back the next.  At OGBN-Arxiv size
+//     depths 1, 2 and 4 take about the same time.
+// With the fetches cut, what took the time was the accumulation, one
+// multiply-add per element of every entry: the bag's arithmetic is below
+// its bytes, but the instructions that issue it, per entry and lane, were
+// not.  So the kernel is instantiated for the passes of 32 chunks a row
+// needs (no idle passes are issued), and an entry that repeats the entry
+// before it with weight 0 on both (a run of pads) is skipped, which
+// leaves the sum bit for bit as adding it would; every other entry is
+// added in k order, so the output, and the NaN of a 0 * inf, are those of
+// adding every entry.
+// Every thread waits for its own copies (cp.async.wait_group) and reads
+// back only the 16-byte chunks it copied itself, so no ring needs a
+// barrier.  Rows must be a multiple of 16 bytes and 16-byte aligned, and
+// a bag row at most 2048 bytes (the wrapper checks); indices must lie in
+// [0, V) (the contract, not checked here).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,7 +83,9 @@ namespace {
 
 constexpr int kGatherWarps = 8;  // warps per block of the two row gathers
 constexpr int kMaxDepth = 8;
-constexpr int kBagPasses = 4;    // a bag row is at most 4 x 32 chunks of 16 B
+constexpr int kBagWarps = 4;     // most warps a block of the bag holds
+constexpr int kBagFlight = 8;    // most batches a warp of the bag has in flight
+constexpr size_t kMaxSmemBytes = 232448;  // dynamic shared memory a block
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -67,6 +99,19 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most n (0..7) of this thread's groups are pending.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
 }
 
 // How many of n_items this block owns: it walks items blockIdx.x,
@@ -230,89 +275,182 @@ struct Chunk<__nv_bfloat16> {
   }
 };
 
-// One warp per block; the block walks output rows blockIdx.x, +gridDim.x,
-// ... with a DEPTH-stage ring of [K, row] tiles.  Lane l copies, and later
-// accumulates, chunks l, l + 32, ... of every one of the K rows.
-template <typename T, int DEPTH>
-__global__ void __launch_bounds__(32)
+// Where a warp is in its walk: the j-th of its output rows and the b-th
+// batch of 32 entries of that row.
+struct BagCursor {
+  int j = 0, b = 0;
+  __device__ void next(int batches) {
+    if (++b == batches) b = 0, ++j;
+  }
+};
+
+// Every warp walks its own output rows (warp w of the grid's W takes rows
+// w, w + W, ...) one batch of up to 32 entries at a time, with up to FLIGHT
+// batches in flight, over a ring of `ring` row slots of its own in shared
+// memory.  Lane l holds entry l of a batch: its index and weight come in
+// one coalesced load, one batch ahead of the batch being prepared.  A
+// batch's distinct indices are found by __match_any_sync; the lowest lane
+// of each index (its leader) takes the next free slot of the ring, and
+// only the leaders' rows are copied, so a row that an output row names
+// many times (the pad) is fetched once per batch.  A batch waits to be
+// issued while the ring has too few free slots for it; the ring holds at
+// least one batch, so an empty ring always takes the next.  Lane l copies,
+// and later accumulates, chunks l, l + 32, ... (PASSES of them) of every
+// row, so each thread reads back only the copies it waited for and the
+// ring needs no barrier.  The accumulation walks the batch's entries in k
+// order, each reading its leader's slot.
+template <typename T, int FLIGHT, int PASSES>
+__global__ void __launch_bounds__(kBagWarps * 32)
     gather_bag_kernel(const T* __restrict__ table,
                       const int32_t* __restrict__ idx,
                       const float* __restrict__ weights, T* __restrict__ out,
-                      int S, int K, int D) {
+                      int S, int K, int D, int ring) {
   extern __shared__ __align__(16) unsigned char smem[];
   using C = Chunk<T>;
   constexpr unsigned kFull = 0xffffffffu;
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int block_warps = blockDim.x >> 5;
   const int row_bytes = D * static_cast<int>(sizeof(T));
   const int chunks = row_bytes >> 4;
-  const size_t tile_bytes = static_cast<size_t>(K) * row_bytes;
-  const int mine = owned_count(S);
-
-  // A row's K indices (and later its weights) come in one coalesced load
-  // of 32 lanes per 32 entries and go out by __shfl_sync.  With K near 32
-  // that is already one memory latency per row, so a Lookahead here only
-  // adds work.
-  auto issue = [&](int j) {
-    if (j < mine) {
-      const size_t s = blockIdx.x + static_cast<size_t>(j) * gridDim.x;
-      unsigned char* stage = smem + (j % DEPTH) * tile_bytes;
-      for (int k0 = 0; k0 < K; k0 += 32) {
-        const int kn = min(32, K - k0);
-        const int32_t my_idx = lane < kn ? idx[s * K + k0 + lane] : 0;
-        for (int k = 0; k < kn; ++k) {
-          const int64_t row = __shfl_sync(kFull, my_idx, k);
-          const unsigned char* src =
-              reinterpret_cast<const unsigned char*>(table) + row * row_bytes;
-          unsigned char* dst =
-              stage + static_cast<size_t>(k0 + k) * row_bytes;
-          for (int c = lane; c < chunks; c += 32)
-            cp_async16(dst + c * 16, src + c * 16);
-        }
-      }
-    }
-    cp_async_commit();
+  unsigned char* const slots =
+      smem + static_cast<size_t>(threadIdx.x >> 5) * ring * row_bytes;
+  const int warps = gridDim.x * block_warps;
+  const int me = blockIdx.x * block_warps + (threadIdx.x >> 5);
+  const int batches = max(1, (K + 31) >> 5);  // K = 0: one empty batch
+  const int rows = me < S ? static_cast<int>((static_cast<long long>(S) -
+                                               me + warps - 1) / warps)
+                          : 0;
+  const int total = rows * batches;  // at most max(S, S * K) < 2^31
+  auto first_k = [&](const BagCursor& at) { return at.b * 32; };
+  auto out_row = [&](const BagCursor& at) {
+    return static_cast<size_t>(me) + static_cast<size_t>(at.j) * warps;
   };
 
-  for (int j = 0; j < DEPTH; ++j) issue(j);
-  for (int j = 0; j < mine; ++j) {
-    cp_async_wait<DEPTH - 1>();
-    const size_t s = blockIdx.x + static_cast<size_t>(j) * gridDim.x;
-    const unsigned char* stage = smem + (j % DEPTH) * tile_bytes;
-    float acc[kBagPasses][C::kElems];
+  // the raw entries of the batch after the pending one (index -1 past the
+  // row's K entries and past the warp's last batch)
+  BagCursor raw_at;
+  int raw_q = 0;
+  int32_t raw_idx = -1;
+  float raw_w = 0.f;
+  auto load_raw = [&]() {
+    raw_idx = -1, raw_w = 0.f;
+    const int k = first_k(raw_at) + lane;
+    if (raw_q < total && k < K) {
+      const size_t e = out_row(raw_at) * K + k;
+      raw_idx = idx[e];
+      raw_w = weights[e];
+    }
+  };
+
+  // the pending batch: prepared, waiting for room in the ring
+  int32_t pend_idx;
+  float pend_w;
+  unsigned pend_leaders;
+  int pend_n, pend_rank;
+  auto prepare = [&]() {
+    pend_idx = raw_idx, pend_w = raw_w;
+    const bool active = first_k(raw_at) + lane < K;
+    const int leader = __ffs(__match_any_sync(kFull, pend_idx)) - 1;
+    pend_leaders = __ballot_sync(kFull, active && leader == lane);
+    pend_n = __popc(pend_leaders);
+    pend_rank = __popc(pend_leaders & ((1u << leader) - 1u));
+    raw_at.next(batches), ++raw_q;
+    load_raw();
+  };
+
+  // batches in flight, oldest first: each lane's entry's weight and ring
+  // slot, and the slots each batch holds
+  float fl_w[FLIGHT];
+  int fl_slot[FLIGHT], fl_n[FLIGHT];
+  int issued = 0, done = 0, head = 0, used = 0;
+  auto issue = [&]() {
+    int slot = head;
+    for (unsigned m = pend_leaders; m; m &= m - 1) {
+      const int64_t row = __shfl_sync(kFull, pend_idx, __ffs(m) - 1);
+      const unsigned char* src =
+          reinterpret_cast<const unsigned char*>(table) + row * row_bytes;
+      unsigned char* dst = slots + static_cast<size_t>(slot) * row_bytes;
+      for (int c = lane; c < chunks; c += 32)
+        cp_async16(dst + c * 16, src + c * 16);
+      if (++slot == ring) slot = 0;
+    }
+    cp_async_commit();
+    int my_slot = head + pend_rank;
+    if (my_slot >= ring) my_slot -= ring;
+    const int f = issued - done;
 #pragma unroll
-    for (int p = 0; p < kBagPasses; ++p)
+    for (int i = 0; i < FLIGHT; ++i)
+      if (i == f) fl_w[i] = pend_w, fl_slot[i] = my_slot, fl_n[i] = pend_n;
+    head = slot, used += pend_n, ++issued;
+  };
+
+  float acc[PASSES][C::kElems];
+  BagCursor at;
+  if (total > 0) load_raw(), prepare();
+  while (done < total) {
+    while (issued < total && issued - done < FLIGHT &&
+           used + pend_n <= ring) {
+      issue();
+      if (issued < total) prepare();
+    }
+    cp_async_wait_upto(issued - done - 1);  // the oldest batch landed
+    if (at.b == 0) {
 #pragma unroll
-      for (int e = 0; e < C::kElems; ++e) acc[p][e] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += 32) {
-      const int kn = min(32, K - k0);
-      const float my_w = lane < kn ? weights[s * K + k0 + lane] : 0.f;
-      for (int k = 0; k < kn; ++k) {
-        const float w = __shfl_sync(kFull, my_w, k);
-        const unsigned char* src =
-            stage + static_cast<size_t>(k0 + k) * row_bytes;
+      for (int p = 0; p < PASSES; ++p)
 #pragma unroll
-        for (int p = 0; p < kBagPasses; ++p) {
-          const int c = p * 32 + lane;
-          if (c < chunks) {
-            float x[C::kElems];
-            C::unpack(*reinterpret_cast<const int4*>(src + c * 16), x);
-            // products rounded, then summed: the TPU kernel's order of
-            // operations, kept out of a fused multiply-add on purpose
+        for (int e = 0; e < C::kElems; ++e) acc[p][e] = 0.f;
+    }
+    // An entry that repeats the entry before it, both of weight 0 (the
+    // run of pads that ends a padded row), is skipped, bit for bit as if
+    // added: the sum starts at +0 and a round-to-nearest sum is -0 only
+    // if both its terms are, so it is never -0 and adding +-0 leaves it
+    // as it is; where the row is not finite, the first entry of the run
+    // has already made the sum NaN.  Every other entry is added in k
+    // order.
+    const int kn = min(32, K - first_k(at));
+    const float my_w = fl_w[0];
+    const int my_slot = fl_slot[0];
+    const float prev_w = __shfl_up_sync(kFull, my_w, 1);
+    const int prev_slot = __shfl_up_sync(kFull, my_slot, 1);
+    const bool repeat =
+        lane > 0 && my_w == 0.f && prev_w == 0.f && my_slot == prev_slot;
+    for (unsigned m = __ballot_sync(kFull, lane < kn && !repeat); m;
+         m &= m - 1) {
+      const int k = __ffs(m) - 1;
+      const float w = __shfl_sync(kFull, my_w, k);
+      const unsigned char* src =
+          slots +
+          static_cast<size_t>(__shfl_sync(kFull, my_slot, k)) * row_bytes;
 #pragma unroll
-            for (int e = 0; e < C::kElems; ++e)
-              acc[p][e] = __fadd_rn(acc[p][e], __fmul_rn(w, x[e]));
-          }
+      for (int p = 0; p < PASSES; ++p) {
+        const int c = p * 32 + lane;
+        if (c < chunks) {
+          float x[C::kElems];
+          C::unpack(*reinterpret_cast<const int4*>(src + c * 16), x);
+          // products rounded, then summed: the TPU kernel's order of
+          // operations, kept out of a fused multiply-add on purpose
+#pragma unroll
+          for (int e = 0; e < C::kElems; ++e)
+            acc[p][e] = __fadd_rn(acc[p][e], __fmul_rn(w, x[e]));
         }
       }
     }
-    unsigned char* dst = reinterpret_cast<unsigned char*>(out) + s * row_bytes;
+    if (at.b == batches - 1) {
+      unsigned char* dst =
+          reinterpret_cast<unsigned char*>(out) + out_row(at) * row_bytes;
 #pragma unroll
-    for (int p = 0; p < kBagPasses; ++p) {
-      const int c = p * 32 + lane;
-      if (c < chunks)
-        *reinterpret_cast<int4*>(dst + c * 16) = C::pack(acc[p]);
+      for (int p = 0; p < PASSES; ++p) {
+        const int c = p * 32 + lane;
+        if (c < chunks)
+          *reinterpret_cast<int4*>(dst + c * 16) = C::pack(acc[p]);
+      }
     }
-    issue(j + DEPTH);
+    used -= fl_n[0];
+#pragma unroll
+    for (int i = 0; i + 1 < FLIGHT; ++i)
+      fl_w[i] = fl_w[i + 1], fl_slot[i] = fl_slot[i + 1],
+      fl_n[i] = fl_n[i + 1];
+    ++done, at.next(batches);
   }
   cp_async_wait<0>();
 }
@@ -324,10 +462,11 @@ __global__ void __launch_bounds__(32)
 // Opt in to `smem` bytes of dynamic shared memory where that is over the
 // default 48 KB, then size a grid of at most `items` blocks that fills the
 // card at the occupancy the kernel reaches, or of `cap` blocks if that is
-// fewer and positive.  Returns a cudaError_t.
+// fewer and positive (0: no cap); `per_sm` (if not null) takes the blocks an SM holds.
+// Returns a cudaError_t.
 template <typename Kernel>
 int persistent_grid(Kernel kernel, int threads, size_t smem, int items,
-                    int cap, int* grid) {
+                    int cap, int* grid, int* per_sm_out = nullptr) {
   cudaError_t e;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel,
@@ -346,6 +485,7 @@ int persistent_grid(Kernel kernel, int threads, size_t smem, int items,
   long long want = static_cast<long long>(per_sm) * sms;
   if (cap > 0 && cap < want) want = cap;
   *grid = static_cast<int>(want < items ? want : items);
+  if (per_sm_out) *per_sm_out = per_sm;
   return 0;
 }
 
@@ -367,37 +507,84 @@ int launch_runahead(const void* table, const void* idx, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int DEPTH>
+// The bag with up to FLIGHT batches in flight a warp and rows of at most
+// PASSES x 32 chunks: each warp a ring of one batch of rows (min(K, 32),
+// at least 1: at most 64 KB), as many warps a block (up to kBagWarps) as
+// one block's shared memory holds, and a grid that fills the card.  With
+// `warps_per_sm` not null, reports the warps an SM holds and launches
+// nothing.
+template <typename T, int FLIGHT, int PASSES>
 int launch_bag(const void* table, const void* idx, const void* w, void* out,
-               int S, int K, int D, cudaStream_t stream) {
-  auto kernel = gather_bag_kernel<T, DEPTH>;
-  const size_t smem = static_cast<size_t>(DEPTH) * K * D * sizeof(T);
-  int grid = 0;
-  const int e = persistent_grid(kernel, 32, smem, S, 0, &grid);
+               int S, int K, int D, cudaStream_t stream, int* warps_per_sm) {
+  auto kernel = gather_bag_kernel<T, FLIGHT, PASSES>;
+  const int ring = K < 32 ? (K > 1 ? K : 1) : 32;
+  const size_t warp_bytes = static_cast<size_t>(ring) * D * sizeof(T);
+  const int block_warps = static_cast<int>(
+      kMaxSmemBytes / warp_bytes < kBagWarps ? kMaxSmemBytes / warp_bytes
+                                             : kBagWarps);
+  const size_t smem = block_warps * warp_bytes;
+  int grid = 0, per_sm = 0;
+  const int e = persistent_grid(kernel, block_warps * 32, smem,
+                                (S + block_warps - 1) / block_warps, 0, &grid,
+                                &per_sm);
   if (e != 0) return e;
-  kernel<<<grid, 32, smem, stream>>>(
+  if (warps_per_sm) {
+    *warps_per_sm = per_sm * block_warps;
+    return 0;
+  }
+  kernel<<<grid, block_warps * 32, smem, stream>>>(
       static_cast<const T*>(table), static_cast<const int32_t*>(idx),
-      static_cast<const float*>(w), static_cast<T*>(out), S, K, D);
+      static_cast<const float*>(w), static_cast<T*>(out), S, K, D, ring);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Passes of 32 chunks of 16 bytes a row takes: 1, 2 or 4 (a row of 65 to
+// 96 chunks takes 4, the last one partly idle); rows of more than 128
+// chunks (2048 bytes) are refused.
+template <typename T, int FLIGHT>
+int bag_passes(const void* table, const void* idx, const void* w, void* out,
+               int S, int K, int D, cudaStream_t s, int* warps_per_sm) {
+  const int chunks = D * static_cast<int>(sizeof(T)) / 16;
+  if (chunks > 4 * 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (chunks <= 32)
+    return launch_bag<T, FLIGHT, 1>(table, idx, w, out, S, K, D, s,
+                                    warps_per_sm);
+  if (chunks <= 64)
+    return launch_bag<T, FLIGHT, 2>(table, idx, w, out, S, K, D, s,
+                                    warps_per_sm);
+  return launch_bag<T, FLIGHT, 4>(table, idx, w, out, S, K, D, s,
+                                  warps_per_sm);
+}
+
+// Most batches in flight a warp: `depth` output rows of ceil(K / 32)
+// batches, at most kBagFlight.
 template <typename T>
-int bag_depth(int depth, const void* table, const void* idx, const void* w,
-              void* out, int S, int K, int D, cudaStream_t s) {
-  switch (depth) {
-    case 1: return launch_bag<T, 1>(table, idx, w, out, S, K, D, s);
-    case 2: return launch_bag<T, 2>(table, idx, w, out, S, K, D, s);
-    case 3: return launch_bag<T, 3>(table, idx, w, out, S, K, D, s);
-    case 4: return launch_bag<T, 4>(table, idx, w, out, S, K, D, s);
-    case 5: return launch_bag<T, 5>(table, idx, w, out, S, K, D, s);
-    case 6: return launch_bag<T, 6>(table, idx, w, out, S, K, D, s);
-    case 7: return launch_bag<T, 7>(table, idx, w, out, S, K, D, s);
-    case 8: return launch_bag<T, 8>(table, idx, w, out, S, K, D, s);
+int bag_flight(int depth, const void* table, const void* idx, const void* w,
+               void* out, int S, int K, int D, cudaStream_t s,
+               int* warps_per_sm) {
+  const long long batches = K > 32 ? (K + 31) / 32 : 1;
+  const long long want = static_cast<long long>(depth) * batches;
+  const int flight = static_cast<int>(want < kBagFlight ? want : kBagFlight);
+#define BAG_CASE(F)                                                      \
+  case F:                                                                \
+    return bag_passes<T, F>(table, idx, w, out, S, K, D, s, warps_per_sm);
+  switch (flight) {
+    BAG_CASE(1) BAG_CASE(2) BAG_CASE(3) BAG_CASE(4)
+    BAG_CASE(5) BAG_CASE(6) BAG_CASE(7) BAG_CASE(8)
   }
+#undef BAG_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-static_assert(kMaxDepth == 8, "the depth switches instantiate 1..8");
+template <typename... Args>
+int bag_dtype(int dtype, Args... args) {
+  if (dtype == 0) return bag_flight<float>(args...);
+  if (dtype == 1) return bag_flight<__nv_bfloat16>(args...);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+static_assert(kMaxDepth == 8 && kBagFlight == 8,
+              "the depth and flight switches instantiate 1..8");
 
 }  // namespace
 
@@ -437,16 +624,24 @@ int pipelined_gather_launch(const void* table, const void* idx, void* out,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (the table and the output); weights
-// are float32; depth in 1..8.
+// are float32; depth in 1..8 output rows in flight a warp at most (at
+// most 8 batches of 32 entries, while their distinct rows fit its ring).
 int gather_bag_launch(int dtype, const void* table, const void* idx,
                       const void* w, void* out, int S, int K, int D,
                       int depth, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return bag_depth<float>(depth, table, idx, w, out, S, K, D, s);
-  if (dtype == 1)
-    return bag_depth<__nv_bfloat16>(depth, table, idx, w, out, S, K, D, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (depth < 1 || depth > kMaxDepth)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return bag_dtype(dtype, depth, table, idx, w, out, S, K, D,
+                   static_cast<cudaStream_t>(stream),
+                   static_cast<int*>(nullptr));
+}
+
+// The warps of the bag an SM holds at these arguments, into *warps.
+int gather_bag_warps_per_sm(int dtype, int K, int D, int depth, int* warps) {
+  if (depth < 1 || depth > kMaxDepth)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return bag_dtype(dtype, depth, nullptr, nullptr, nullptr, nullptr, 1, K,
+                   D, static_cast<cudaStream_t>(nullptr), warps);
 }
 
 }  // extern "C"

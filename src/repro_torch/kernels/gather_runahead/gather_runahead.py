@@ -30,8 +30,9 @@ def _lib() -> ctypes.CDLL:
     lib.runahead_gather_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
     lib.pipelined_gather_launch.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
     lib.gather_bag_launch.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
+    lib.gather_bag_warps_per_sm.argtypes = [i32] * 4 + [ptr]
     for fn in (lib.runahead_gather_launch, lib.pipelined_gather_launch,
-               lib.gather_bag_launch):
+               lib.gather_bag_launch, lib.gather_bag_warps_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
@@ -149,10 +150,15 @@ def pipelined_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_bag(table: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
                *, depth: int = 2) -> torch.Tensor:
-    """out[s] = sum_k w[s,k] * table[idx[s,k]] in float32, cast to the
-    table's type, with ``depth`` output rows of K row copies in flight per
-    CUDA block.  table [V, D] float32 or bfloat16 (rows of at most 2048
-    bytes); idx [S, K] int32; weights [S, K] float32 -> [S, D]."""
+    """out[s] = sum_k w[s,k] * table[idx[s,k]] in float32 (rounded products
+    added in k order from 0, bit for bit ``ref.gather_bag_ordered_ref``),
+    cast to the table's type.  Each batch of 32 entries fetches each of its
+    distinct rows once, into a warp's ring of min(K, 32) row slots.
+    ``depth`` is an upper limit: a warp has up to min(depth * ceil(K / 32),
+    8) batches in flight, and only while their distinct rows fit its ring,
+    so a row with many distinct indices holds back the next.  table [V, D]
+    float32 or bfloat16 (rows of at most 2048 bytes); idx [S, K] int32;
+    weights [S, K] float32 -> [S, D]."""
     who = "gather_bag"
     device = _check_device(who, table=table, idx=idx, weights=weights)
     row_bytes = _check_rows(who, table)
@@ -169,21 +175,33 @@ def gather_bag(table: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
                          f"kernel's {MAX_BAG_ROW_BYTES}-byte accumulator")
     s, k = idx.shape
     depth = _check_depth(who, depth, s)
-    if depth * k * row_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f"{who}: a ring of {depth} x {k} rows of {row_bytes} "
-                         f"bytes exceeds {MAX_SMEM_BYTES} bytes of shared "
-                         f"memory; lower depth")
+    # a warp's ring holds one batch, at most 32 rows of at most 2048 bytes
+    # (64 KB), so every shape the checks above pass fits a block
     out = torch.empty((s, table.shape[1]), dtype=table.dtype, device=device)
     if s == 0:
         return out
     with torch.cuda.device(device):
         err = _lib().gather_bag_launch(
             _BAG_DTYPES[table.dtype], table.data_ptr(), idx.data_ptr(),
-            weights.data_ptr(),
-            out.data_ptr(), s, k, table.shape[1], depth, _stream(device))
+            weights.data_ptr(), out.data_ptr(), s, k, table.shape[1], depth,
+            _stream(device))
     _raise_on(who, err)
     gather_bag.launches += 1
     return out
+
+
+def bag_warps_per_sm(table: torch.Tensor, k: int, depth: int = 2) -> int:
+    """Warps of the bag kernel an SM holds for this table, fan-in K and
+    depth (the CUDA occupancy calculator; launches nothing)."""
+    who = "bag_warps_per_sm"
+    _check_rows(who, table)
+    warps = ctypes.c_int(0)
+    with torch.cuda.device(table.device):
+        err = _lib().gather_bag_warps_per_sm(
+            _BAG_DTYPES[table.dtype], k, table.shape[1], depth,
+            ctypes.addressof(warps))
+    _raise_on(who, err)
+    return warps.value
 
 
 runahead_gather.launches = 0

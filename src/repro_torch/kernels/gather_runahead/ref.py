@@ -27,3 +27,17 @@ def gather_bag_ref(table: torch.Tensor, idx: torch.Tensor,
     rows = table[idx.long()].float()                       # [S, K, D]
     acc = (rows * weights.float()[..., None]).sum(dim=1)
     return acc.to(table.dtype)
+
+
+def gather_bag_ordered_ref(table: torch.Tensor, idx: torch.Tensor,
+                           weights: torch.Tensor) -> torch.Tensor:
+    """The bag in the CUDA kernel's order of operations: for k = 0 .. K - 1
+    the float32 product w[s,k] * table[idx[s,k]] is rounded, then added to
+    a float32 sum that starts at 0; the sum is cast to the table's type.
+    On the same device this is bit for bit what the kernel gives."""
+    w = weights.float()
+    acc = torch.zeros(idx.shape[0], table.shape[1], dtype=torch.float32,
+                      device=table.device)
+    for k in range(idx.shape[1]):
+        acc = acc + w[:, k, None] * table[idx[:, k].long()].float()
+    return acc.to(table.dtype)

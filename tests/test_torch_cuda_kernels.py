@@ -16,6 +16,11 @@ blocks at lengths that cross split boundaries, zero-length rows, rep 1 to 8,
 D 64, 80 and 128, pages of 16 and 32 and 8 rows of 4,096 tokens, MoE
 dispatch and combine at T = 1, K = 1 and 8, and with every choice dropped
 (combine bit for bit at T 1 to 4,096, its rows split over blocks and not),
+the bag bit for bit against its kernel-order plain version where
+deduplicating a batch's rows could go wrong (all-pad rows, one index K
+times, repeats across lane 32 at K 33 and 40, phase 6's padded CSR, an
+inf pad row under weight 0) at depths 1 to 8, D 4 to 512, and at S
+65,536, where each warp walks many batches and its ring wraps,
 the profiler's stack kernels at T 1, 31, 33 and 16,384, one-address and
 negative streams, max_ways 1 and 32 and 1,024 sets,
 and SSD scans of one chunk, one head, a ragged last chunk and
@@ -122,6 +127,72 @@ def test_gather_bag_within_its_bound(card, v, d, dtype, s, k, depth):
     assert bool((diff <= tol).all()), diff.max().item()
 
 
+def _bag_pattern(pattern, s, k, v, rng):
+    """idx, w [S, K] of a shape that deduplicating a batch's rows could get
+    wrong."""
+    idx = rng.integers(1, v, (s, k))
+    w = rng.normal(size=(s, k))
+    if pattern == "all_pad":                   # every entry the pad
+        idx[:], w[:] = 0, 0.0
+    elif pattern == "one_index":               # K entries, one row each
+        idx[:] = idx[:, :1]
+    elif pattern == "straddle":                # repeats across lane 32
+        idx = rng.integers(1, 5, (s, k))
+        idx[:, 30:34] = idx[:, 29:30]
+    elif pattern == "phase6":                  # padded CSR: pad 0, weight 0
+        deg = np.minimum(rng.poisson(6.9, s), k)
+        idx = (rng.zipf(1.5, (s, k)) % v).astype(np.int64)
+        pad = np.arange(k)[None, :] >= deg[:, None]
+        idx[pad], w[pad] = 0, 0.0
+    return (torch.from_numpy(idx.astype(np.int32)),
+            torch.from_numpy(w.astype(np.float32)))
+
+
+@pytest.mark.parametrize("d,dtype", [
+    (4, torch.float32), (128, torch.float32), (512, torch.float32),
+    (8, torch.bfloat16),                       # bf16's narrowest 16-byte row
+    (128, torch.bfloat16), (512, torch.bfloat16)])
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+@pytest.mark.parametrize("pattern,s,k", [
+    ("all_pad", 512, 23), ("one_index", 512, 23), ("straddle", 512, 33),
+    ("straddle", 512, 40), ("phase6", 4096, 23),
+    ("straddle", 65536, 40), ("phase6", 65536, 23)])
+def test_gather_bag_is_bit_identical_to_its_ordered_version(
+        card, pattern, s, k, depth, d, dtype):
+    """Each batch fetches its distinct rows once and every entry reads its
+    leader's copy: the output is the kernel-order plain version's, bit for
+    bit.  At S 65,536 every warp of the full grid walks many batches, so
+    its ring of slots wraps."""
+    v = 1000
+    table = _table(v, d, dtype, 5, card)
+    idx, w = _bag_pattern(pattern, s, k, v, np.random.default_rng(6))
+    idx, w = idx.to(card), w.to(card)
+    out = kernel.gather_bag(table, idx, w, depth=depth)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (s, d)
+    assert torch.equal(_bits(out),
+                       _bits(ref.gather_bag_ordered_ref(table, idx, w)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth", [1, 2, 4, 8])
+def test_gather_bag_keeps_zero_times_inf(card, dtype, depth):
+    """A pad row of inf under weight 0: NaN exactly where the plain version
+    gives NaN, the same bits everywhere else."""
+    table = _table(1000, 128, dtype, 5, card)
+    table[0, :64] = float("inf")
+    idx, w = _bag_pattern("phase6", 4096, 23, 1000, np.random.default_rng(7))
+    idx, w = idx.to(card), w.to(card)
+    out = kernel.gather_bag(table, idx, w, depth=depth).float().cpu()
+    want = ref.gather_bag_ordered_ref(table, idx, w).float().cpu()
+    nan = torch.isnan(want)
+    assert nan.any() and torch.equal(torch.isnan(out), nan)
+    assert torch.equal(torch.isnan(ref.gather_bag_ref(table, idx, w))
+                       .cpu(), nan)
+    assert torch.equal(out[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+
+
 def test_gather_bag_takes_float32_weights(card):
     table = _table(8, 32, torch.bfloat16, 0, card)
     idx = torch.zeros(2, 3, dtype=torch.int32, device=card)
@@ -137,6 +208,22 @@ def test_gather_bag_refuses_rows_past_its_accumulator(card):
     idx = torch.zeros(2, 3, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="accumulator"):
         kernel.gather_bag(table, idx, torch.ones(2, 3, device=card))
+
+
+def test_gather_bag_takes_any_depth_at_any_fan_in(card):
+    """The ring holds one batch of 32 rows whatever the depth, so shapes
+    whose depth x K rows of 2 KB passed a block's shared memory run; an
+    empty bag (K 0) is zeros."""
+    table = _table(64, 512, torch.float32, 0, card)   # 2048-byte rows
+    rng = np.random.default_rng(8)
+    for k, depth in ((113, 8), (200, 2), (0, 4)):
+        idx = torch.from_numpy(rng.integers(0, 64, (9, k)).astype(np.int32))
+        w = torch.from_numpy(rng.normal(size=(9, k)).astype(np.float32))
+        idx, w = idx.to(card), w.to(card)
+        out = kernel.gather_bag(table, idx, w, depth=depth)
+        assert torch.equal(_bits(out),
+                           _bits(ref.gather_bag_ordered_ref(table, idx, w)))
+    assert kernel.bag_warps_per_sm(table, 23) >= 1
 
 
 def test_cache_grid_kernel_equals_the_plain_version(card):

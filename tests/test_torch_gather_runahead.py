@@ -10,7 +10,11 @@ to the Pallas kernel only, which sums float32 products and casts the sum
 once, as the port does: the two float32 sums differ only in the order of
 their K terms, so the outputs may differ by one bfloat16 rounding of the
 sum (``rtol = 2**-7``) plus that order's float32 error (``atol = 1e-5``).
-The reference's oracle sums in bfloat16 and rounds at every term.
+The reference's oracle sums in bfloat16 and rounds at every term.  The
+port's kernel-order plain version (``ref.gather_bag_ordered_ref``: rounded
+float32 products added in k order, what the CUDA kernel computes bit for
+bit) is held to the Pallas kernel and to ``ref.gather_bag_ref`` at the
+same tolerances.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -121,3 +125,36 @@ def test_gather_bag_ref_sums_in_f32():
     # float32 the three small terms add to 1.5 * 2**-8, and the one final
     # rounding to bfloat16 gives 1 + 2**-7
     assert ref.gather_bag_ref(table, idx, w).item() == 1.0 + 2.0**-7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("fanin", [2, 4, 8])
+def test_gather_bag_ordered_ref_matches_the_pallas_kernel(seed, fanin, dtype):
+    table, idx, w = _bag_inputs(seed, fanin, getattr(jnp, dtype))
+    out = ref.gather_bag_ordered_ref(*_port(table, idx, w))
+    assert out.dtype == getattr(torch, dtype) and out.shape == (16, 128)
+    rtol = 1e-5 if dtype == "float32" else 2**-7
+    for want in (np.asarray(jax_ops.gather_bag(table, idx, w), np.float32),
+                 ref.gather_bag_ref(*_port(table, idx, w)).float().numpy()):
+        np.testing.assert_allclose(out.float().numpy(), want, rtol=rtol,
+                                   atol=1e-5)
+
+
+def test_gather_bag_ordered_ref_keeps_zero_times_inf():
+    """A pad row of inf under weight 0 gives NaN in every version: the
+    kernel may fetch that row once per batch, but every entry multiplies."""
+    rng = np.random.default_rng(4)
+    table = np.asarray(rng.normal(size=(8, 128)), np.float32)
+    table[0, :64] = np.inf
+    idx = np.asarray(rng.integers(1, 8, (16, 6)), np.int32)
+    idx[::2, 3:] = 0                                   # pads on even rows
+    w = np.asarray(rng.normal(size=(16, 6)), np.float32)
+    w[idx == 0] = 0.0
+    out = ref.gather_bag_ordered_ref(*_port(table, idx, w)).numpy()
+    for want in (jax_ops.gather_bag(jnp.asarray(table), jnp.asarray(idx),
+                                    jnp.asarray(w)),
+                 ref.gather_bag_ref(*_port(table, idx, w))):
+        want = np.asarray(want)
+        np.testing.assert_array_equal(np.isnan(out), np.isnan(want))
+    assert np.isnan(out[::2, :64]).all() and not np.isnan(out[1::2]).any()
