@@ -1,5 +1,5 @@
-"""Drive the PyTorch port's serving, runahead, training, MoE and SSM paths
-on one CUDA card and check them.
+"""Drive the PyTorch port's serving, runahead, training, MoE, SSM and
+encoder-decoder paths on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -77,6 +77,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     greedy lockstep
     ``api.decode`` steps of 8 sequences; hold prefill against 512 decode
     steps in float32 at 4 layers (1e-3 of the logit std) and report the
+    bfloat16 full-depth gap;
+14. serve full-width, full-depth whisper-small (12 + 12 layers, random
+    weights, seeded N(0, 1) frame embeddings): ``api.prefill`` at B 8 x
+    4,096 frames x 448 decoder tokens with exactly 12 flash launches (one
+    an encoder layer, on the wgmma route), then ``encode`` (12 more),
+    ``precompute_cross`` into an ``api.init_cache(cfg, 8, 448)`` cache and
+    32 greedy lockstep ``api.decode`` steps; time the flash kernel at the
+    encoder's shape against its plain version, SDPA and the bound; hold
+    the card's float32 prefill against the CPU path's (2 + 2 layers, B 1,
+    1e-4 of the logit std) and prefill against 64 teacher-forced decode
+    steps (float32, 2 + 2 layers, 1e-4 of the logit std), and report the
     bfloat16 full-depth gap.
 
 The second-to-last line is a JSON object describing each kernel, the last
@@ -84,6 +95,7 @@ The second-to-last line is a JSON object describing each kernel, the last
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -130,6 +142,10 @@ SSD_SOURCE = "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu"
 SSD_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:73"
 # dbrx-132b's 40 layers are 261 GB in bf16; 8 (54.6 GB) fit one card
 DBRX_LAYERS = 8
+# whisper-small at train_4k's 4,096 frames (models/api.py input_specs): its
+# own 1,500 fail blocked attention's chunk assertion in both packages
+WHISPER_B, WHISPER_FRAMES, WHISPER_DECODE = 8, 4_096, 32
+WHISPER_CHECK_TOKENS = 64
 
 
 def card_line() -> str:
@@ -1578,6 +1594,239 @@ def prefill_vs_decode(cfg, params, s: int) -> tuple[float, float]:
     return (lo - want).abs().max().item(), want.std().item()
 
 
+def whisper_batch(cfg, b: int, t: int, seed: int) -> dict:
+    """Seeded N(0, 1) frame embeddings [b, 4,096, d] (the stubbed conv
+    frontend's output) and ``t`` decoder tokens, as host arrays."""
+    rng = np.random.default_rng(seed)
+    return {"frames": rng.standard_normal(
+                (b, WHISPER_FRAMES, cfg.d_model), dtype=np.float32),
+            "dec_tokens": rng.integers(0, cfg.vocab_size, (b, t),
+                                       dtype=np.int32)}
+
+
+def whisper_cross_cache(params, cfg, frames: torch.Tensor, seq_len: int):
+    """``api.init_cache`` with the cross K/V of ``encode(frames)`` in it."""
+    from repro_torch.models import api, encdec
+
+    cache = api.init_cache(cfg, frames.shape[0], seq_len, device="cuda")
+    cache["cross_k"], cache["cross_v"] = encdec.precompute_cross(
+        params, encdec.encode(params, frames, cfg), cfg)
+    return cache
+
+
+def whisper_prefill_vs_decode(params, cfg, batch: dict
+                              ) -> tuple[float, float]:
+    """Last-position logits of a 64-token decoder prompt by prefill and by
+    64 teacher-forced lockstep decode steps on the same frames' cross K/V:
+    (max abs diff, logit std)."""
+    from repro_torch.models import api
+
+    prompt = batch["dec_tokens"][:, :WHISPER_CHECK_TOKENS]
+    with torch.no_grad():
+        want = api.prefill(params, {"frames": batch["frames"],
+                                    "dec_tokens": prompt}, cfg,
+                           device="cuda")
+        cache = whisper_cross_cache(params, cfg, batch["frames"],
+                                    WHISPER_CHECK_TOKENS)
+        for t in range(WHISPER_CHECK_TOKENS):
+            lo, cache = api.decode(params, prompt[:, t:t + 1], cache, cfg)
+    return (lo - want).abs().max().item(), want.std().item()
+
+
+def whisper_flash_times(cfg, flush: torch.Tensor) -> dict:
+    """The flash kernel at whisper's encoder self-attention (B 8 x H 12 x
+    S 4,096 x D 64, bf16, non-causal) against its plain version, SDPA and
+    the bound: 4 D flops for each of the S^2 (query, key) pairs at 989
+    TFLOP/s, or q, k, v read and y, the f32 lse written once."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.kernels.flash_attention import ref
+
+    b, h, s, d = WHISPER_B, cfg.n_heads, WHISPER_FRAMES, cfg.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    y, lse = kernel.flash_attention(q, k, v, causal=False)
+    want_y, want_lse = ref.attention_ref(q, k, v, causal=False)
+    err = (y.float() - want_y.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    del want_y, want_lse
+    if not (err <= TOL[torch.bfloat16] and lse_err <= 1e-4):
+        raise AssertionError(f"flash_attention at whisper's encoder shape: "
+                             f"y err {err}, lse err {lse_err}")
+    tiled = tiled_gate(y, q, k, v, False, None, 0, "whisper encoder")
+    ms = time_ms(lambda: kernel.flash_attention(q, k, v, causal=False),
+                 flush)
+    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=False),
+                       flush, iters=10)
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
+        flush)
+    flops = 4 * b * h * d * s * s
+    n_bytes = 4 * b * h * s * d * q.element_size() + 4 * b * h * s
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
+    bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                      else "bytes")
+    print(f"phase 14: flash_attention bfloat16 at whisper's encoder shape "
+          f"(B {b}, H {h}, S {s}, D {d}, non-causal; route "
+          f"{kernel.route(q.dtype, d)}): y max abs err {err:.3e} (tol "
+          f"{TOL[torch.bfloat16]}), lse {lse_err:.3e} (tol 1e-4){tiled}; "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+          f"{library_ms:.4f} (SDPA) bound_ms={bound:.4f} ({flops} flops, "
+          f"{n_bytes} bytes) {by}-bound: {flops / ms / 1e9:.1f} TFLOP/s = "
+          f"{bound / ms:.1%} of the bound; {card_line()}", flush=True)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=library_ms)
+
+
+def phase_whisper(cfg, flush: torch.Tensor) -> tuple[int, dict]:
+    """Full-width, full-depth whisper-small: prefill at B 8 x 4,096 frames
+    x 448 decoder tokens (the flash counter set to 0 just before and read
+    just after), the lockstep decode on the frames' cross K/V, the flash
+    kernel at the encoder's shape, and the float32 gates.  Returns the
+    prefill's flash launches and the kernel's numbers at that shape."""
+    from repro_torch.kernels.flash_attention import flash_attention as kernel
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import api, encdec
+
+    if kernel.route(torch.bfloat16, cfg.head_dim) != "mma":
+        raise AssertionError(f"flash route for bf16 D {cfg.head_dim} is "
+                             f"{kernel.route(torch.bfloat16, cfg.head_dim)}"
+                             f"; want mma")
+    t0 = time.monotonic()
+    params = api_init(cfg)
+    torch.cuda.synchronize()
+    print(f"phase 14: {cfg.name} at full width and depth "
+          f"({cfg.n_encoder_layers} + {cfg.n_decoder_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.norm_kind} norm, GELU, "
+          f"{cfg.dtype}, untied): "
+          f"{sum(p.numel() for p in params.parameters())} random "
+          f"parameters drawn in {time.monotonic() - t0:.2f} s", flush=True)
+    b, t = WHISPER_B, cfg.decoder_len
+    batch = api.batch_to(whisper_batch(cfg, b, t, seed=14), "cuda")
+    with torch.no_grad():
+        api.prefill(params, batch, cfg, device="cuda")      # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernel.flash_attention.launches = 0
+        logits = api.prefill(params, batch, cfg, device="cuda")
+        torch.cuda.synchronize()
+        launches = kernel.flash_attention.launches
+        peak = torch.cuda.max_memory_allocated()
+        ms = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            api.prefill(params, batch, cfg, device="cuda")
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        # the flash kernel's share of one more prefill, by CUDA events
+        # around each launch
+        timed = flash_ops.kernel = _TimedKernel(flash_ops.kernel)
+        try:
+            api.prefill(params, batch, cfg, device="cuda")
+            torch.cuda.synchronize()
+            flash_ms = [s.elapsed_time(e) for s, e in timed.events]
+        finally:
+            flash_ops.kernel = timed.module
+    if launches != cfg.n_encoder_layers:
+        raise AssertionError(f"flash_attention launched {launches} times in "
+                             f"one prefill; want {cfg.n_encoder_layers}, one "
+                             f"an encoder layer")
+    if not (logits.shape == (b, cfg.vocab_size)
+            and torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}, finite "
+                             f"{bool(torch.isfinite(logits).all())}")
+    med = statistics.median(ms)
+    print(f"phase 14: prefill B {b} x {WHISPER_FRAMES} frames x {t} decoder "
+          f"tokens: ms {[round(x, 2) for x in ms]} (CUDA events, median "
+          f"{med:.2f}) = {b * WHISPER_FRAMES / med * 1e3:.1f} frames/s; "
+          f"flash_attention launches {launches} = {cfg.n_encoder_layers} "
+          f"encoder layers, route mma; flash "
+          f"{sum(flash_ms):.2f} ms of the prefill ({sum(flash_ms) / med:.1%}"
+          f"; per launch {[round(x, 3) for x in flash_ms]}); logits "
+          f"{tuple(logits.shape)} finite, std {logits.std().item():.4f}; "
+          f"peak memory {peak / 2**30:.3f} GiB; {card_line()}", flush=True)
+
+    with torch.no_grad():
+        kernel.flash_attention.launches = 0
+        cache = whisper_cross_cache(params, cfg, batch["frames"], t)
+        torch.cuda.synchronize()
+        enc_launches = kernel.flash_attention.launches
+        tok = batch["dec_tokens"][:, :1]
+        step_ms, seq = [], [tok]
+        for _ in range(WHISPER_DECODE):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lo, cache = api.decode(params, tok, cache, cfg)
+            tok = lo.argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            seq.append(tok)
+    if enc_launches != cfg.n_encoder_layers:
+        raise AssertionError(f"encode launched flash_attention "
+                             f"{enc_launches} times; want "
+                             f"{cfg.n_encoder_layers}")
+    if cache["pos"] != WHISPER_DECODE or not torch.isfinite(lo).all():
+        raise AssertionError(f"lockstep decode: position {cache['pos']}, "
+                             f"finite {bool(torch.isfinite(lo).all())}")
+    steady = step_ms[1:]
+    print(f"phase 14: encode ({enc_launches} flash launches) + "
+          f"precompute_cross into api.init_cache(cfg, {b}, {t}) (cross K/V "
+          f"{tuple(cache['cross_k'].shape)}), {WHISPER_DECODE} greedy "
+          f"api.decode steps: ms per step mean {statistics.mean(steady):.2f}"
+          f" (steps 1-{WHISPER_DECODE - 1}; min {min(steady):.2f}, max "
+          f"{max(steady):.2f}; step 0 {step_ms[0]:.2f}); position "
+          f"{cache['pos']}; logits finite; first sequence "
+          f"{torch.cat(seq, 1)[0, :12].tolist()}", flush=True)
+    del cache, logits, lo
+    torch.cuda.empty_cache()
+
+    times = whisper_flash_times(cfg, flush)
+
+    one = api.batch_to(whisper_batch(cfg, 1, t, seed=15), "cuda")
+    gap, std = whisper_prefill_vs_decode(params, cfg, one)
+    print(f"phase 14: bfloat16 {cfg.n_encoder_layers} + "
+          f"{cfg.n_decoder_layers} layers, B 1 x {WHISPER_FRAMES} frames, "
+          f"prefill vs {WHISPER_CHECK_TOKENS} teacher-forced decode steps: "
+          f"last-position max abs logit diff {gap:.3e} (logit std "
+          f"{std:.4f}), reported without a bound", flush=True)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    cfg2 = dataclasses.replace(cfg, n_layers=4, n_encoder_layers=2,
+                               n_decoder_layers=2, dtype="float32")
+    cpu = api.init_params(cfg2, torch.Generator().manual_seed(0), "cpu")
+    gpu = copy.deepcopy(cpu).to("cuda")
+    host = whisper_batch(cfg2, 1, t, seed=15)
+    with torch.no_grad():
+        want = api.prefill(cpu, host, cfg2, device="cpu")
+        got = api.prefill(gpu, host, cfg2, device="cuda").cpu()
+    err, std = (got - want).abs().max().item(), want.std().item()
+    if not (math.isfinite(err) and err <= 1e-4 * std):
+        raise AssertionError(f"float32 prefill on the card differs from the "
+                             f"CPU path by {err} (> 1e-4 x logit std {std})")
+    print(f"phase 14: float32 2 + 2 layers, B 1 x {WHISPER_FRAMES} frames x "
+          f"{t} tokens, prefill on the card (flash kernel, simt route) vs "
+          f"the CPU path (its plain version): max abs logit diff {err:.3e} "
+          f"(tol 1e-4 x logit std {std:.4f} = {1e-4 * std:.3e})",
+          flush=True)
+    del cpu
+    gap, std = whisper_prefill_vs_decode(gpu, cfg2,
+                                         api.batch_to(host, "cuda"))
+    if not (math.isfinite(gap) and gap <= 1e-4 * std):
+        raise AssertionError(f"float32 prefill vs decode: last logits differ "
+                             f"by {gap} (> 1e-4 x logit std {std})")
+    print(f"phase 14: float32 2 + 2 layers, prefill vs "
+          f"{WHISPER_CHECK_TOKENS} teacher-forced decode steps on the same "
+          f"cross K/V: last-position max abs logit diff {gap:.3e} (tol 1e-4 "
+          f"x logit std {std:.4f} = {1e-4 * std:.3e})", flush=True)
+    return launches, times
+
+
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
     from repro_torch.models import api
@@ -1681,6 +1930,11 @@ def main() -> int:
     phase_moe_logits_f32(dbrx)
     torch.cuda.empty_cache()
     ssd_launches = phase_mamba(registry.get("mamba2-2.7b"))
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    whisper_launches, whisper_flash = phase_whisper(
+        registry.get("whisper-small"), flush)
+    del flush
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
@@ -1698,7 +1952,10 @@ def main() -> int:
             "max_abs_err": stats["errs"][name], **times[name]})
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
-        "replaces": FLASH_REPLACES, "launches": flash_launches, **flash})
+        "replaces": FLASH_REPLACES,
+        "launches": flash_launches + whisper_launches,
+        "launches_by_phase": {"9": flash_launches, "14": whisper_launches},
+        **flash, "whisper_encoder": whisper_flash})
     for name, line in (("moe_dispatch", 45), ("moe_combine", 106)):
         kernels.append({
             "name": name, "route": "cuda", "source": MOE_SOURCE,

@@ -7,7 +7,9 @@ each request's stream and the engine metrics; it serves any arch that
 ``api.serve_supported`` accepts (dense and MoE attention decoders).
 ``--legacy`` runs the lockstep batch loop instead (every sequence at one
 shared position, greedy tokens), ``api.init_cache`` / ``api.decode``: the
-path that serves the SSM and hybrid archs.  It has no mesh (the
+path that serves the SSM and hybrid archs.  The encoder-decoder arch
+(whisper-small) is refused in both modes: its decode needs the encoder's
+cross K/V, which ``chip_smoke.py`` phase 14 makes.  It has no mesh (the
 reference's sharded serve step is a later slice of the port).
 
 Weights are random, drawn from seed 0 on the device.  The arch's smoke
@@ -127,8 +129,14 @@ def main(argv=None) -> dict:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to N layers")
     args = ap.parse_args(argv)
-    device = resolve_device(args.device)
     cfg = build_config(args.arch, args.full, args.layers)
+    if cfg.family == "encdec":
+        raise SystemExit(
+            f"{cfg.name}: an encoder-decoder decodes against its encoder "
+            f"output's cross K/V (encdec.encode, encdec.precompute_cross, "
+            f"then api.decode), which this example does not make; "
+            f"chip_smoke.py phase 14 serves it that way")
+    device = resolve_device(args.device)
     with torch.no_grad():
         if args.legacy:
             return run_legacy(args, cfg, device)

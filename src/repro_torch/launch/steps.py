@@ -1,11 +1,13 @@
-"""The train step and the serve-step assembly.
+"""The train step, the lockstep serve and prefill steps, and the
+serve-step assembly.
 
-The twin of ``make_optimizer``, ``train_step`` and
-``build_serve_engine_steps`` in ``repro.launch.steps``.  The reference jits
-its steps and donates the state / cache argument so they update in place;
-PyTorch runs eagerly, and the steps here update the optimizer state and
-the cache tensors in place themselves (see :mod:`repro_torch.optim.adamw`
-and :mod:`repro_torch.models.paged_lm`), returning them.  Serve shapes are
+The twin of ``make_optimizer``, ``train_step``, ``serve_step``,
+``prefill_step`` and ``build_serve_engine_steps`` in
+``repro.launch.steps``.  The reference jits its steps and donates the
+state / cache argument so they update in place; PyTorch runs eagerly, and
+the steps here update the optimizer state and the cache tensors in place
+themselves (see :mod:`repro_torch.optim.adamw` and
+:mod:`repro_torch.models.paged_lm`), returning them.  Serve shapes are
 still fixed at build time (slot count, padded cache length, prefill
 chunk), whatever the batch composition.
 """
@@ -25,6 +27,13 @@ def make_optimizer(cfg: ModelConfig, lr: float = 3e-4) -> adamw.AdamWConfig:
     return adamw.AdamWConfig(lr=lr, moment_dtype=cfg.adam_dtype)
 
 
+def _grads(loss: torch.Tensor, leaves) -> tuple:
+    """d loss / d leaf for every leaf; zeros for a leaf the loss does not
+    use (an embeddings-input model's token table), as ``jax.grad`` gives."""
+    return torch.autograd.grad(loss, leaves, allow_unused=True,
+                               materialize_grads=True)
+
+
 def train_step(state: dict, batch: dict, cfg: ModelConfig,
                opt: adamw.AdamWConfig, transform=None, *, device=None):
     """Loss + grads + AdamW update; returns (state, metrics), the state
@@ -39,7 +48,7 @@ def train_step(state: dict, batch: dict, cfg: ModelConfig,
     accum = max(1, cfg.accum_steps)
     if accum == 1:
         loss = api.train_loss(params, batch, cfg, device=device)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = _grads(loss, leaves)
     else:
         micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                  for k, v in batch.items()}
@@ -49,7 +58,7 @@ def train_step(state: dict, batch: dict, cfg: ModelConfig,
         for i in range(accum):
             mb = {k: v[i] for k, v in micro.items()}
             l = api.train_loss(params, mb, cfg, device=device)
-            for acc, g in zip(grads, torch.autograd.grad(l, leaves)):
+            for acc, g in zip(grads, _grads(l, leaves)):
                 acc.add_(g.float())
             loss = loss + l.detach()
         grads = [g / accum for g in grads]
@@ -58,6 +67,18 @@ def train_step(state: dict, batch: dict, cfg: ModelConfig,
     state = adamw.apply_updates(state, grads, cfg=opt, transform=transform)
     metrics = {"loss": loss.detach(), "grad_norm": adamw.global_norm(grads)}
     return state, metrics
+
+
+def serve_step(params, tokens, cache, cfg: ModelConfig):
+    """One legacy lockstep decode step: (logits [B, V] float32, cache),
+    the cache updated in place on its own device."""
+    return api.decode(params, tokens, cache, cfg)
+
+
+def prefill_step(params, batch: dict, cfg: ModelConfig, *, device=None):
+    """Last-position logits [B, V] float32 of ``batch`` (moved to
+    ``device``, the card when None)."""
+    return api.prefill(params, batch, cfg, device=device)
 
 
 @dataclasses.dataclass

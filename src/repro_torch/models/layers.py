@@ -1,7 +1,7 @@
-"""Layer library: norms, RoPE, the SwiGLU MLP and GQA attention (over a
-cache with per-row positions for serving, or one shared position for the
-legacy decode; reference and blocked attention over the whole sequence for
-training and prefill).
+"""Layer library: norms, RoPE, the SwiGLU and GELU MLPs and GQA attention
+(over a cache with per-row positions for serving, or one shared position
+for the legacy decode; reference and blocked attention over the whole
+sequence for training and prefill; encoder-decoder cross attention).
 
 Parameters live in small ``nn.Module``s (:class:`Norm`, :class:`Attention`,
 :class:`MLP`) holding the same leaves, shapes and dtypes as the JAX
@@ -94,27 +94,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP (SwiGLU / GELU)
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """Gated (SwiGLU) MLP parameters."""
+    """Gated (SwiGLU: ``wi_gate``, ``wi_up``, ``wo``) or, with
+    ``gated=False``, GELU (``wi``, ``wo``) MLP parameters."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, gated: bool = True, *, device=None):
         super().__init__()
         dt = getattr(torch, cfg.dtype)
         d, f = cfg.d_model, cfg.d_ff
-        self.wi_gate = _param((d, f), dt, device)
-        self.wi_up = _param((d, f), dt, device)
+        if gated:
+            self.wi_gate = _param((d, f), dt, device)
+            self.wi_up = _param((d, f), dt, device)
+        else:
+            self.wi = _param((d, f), dt, device)
         self.wo = _param((f, d), dt, device)
 
     def reset_parameters(self, generator) -> None:
-        for w in (self.wi_gate, self.wi_up, self.wo):
+        for w in self.parameters():
             dense_init_(w, generator)
 
 
 def apply_mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(x @ p.wi_gate) * (x @ p.wi_up)
+    """The branch is picked by the leaves ``p`` holds, as in the reference;
+    its ``jax.nn.gelu`` is the tanh approximation."""
+    if hasattr(p, "wi_gate"):
+        h = F.silu(x @ p.wi_gate) * (x @ p.wi_up)
+    else:
+        h = F.gelu(x @ p.wi, approximate="tanh")
     return h @ p.wo
 
 
@@ -373,4 +382,14 @@ def apply_attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,
                               triangular=(impl == "triangular"))
     else:
         y = reference_attention(q, k, v, causal=causal, window=window)
+    return _merge_heads(p, y)
+
+
+def apply_cross_attention(p: Attention, x: torch.Tensor, ctx: torch.Tensor,
+                          cfg: ModelConfig) -> torch.Tensor:
+    """Encoder-decoder cross attention (no positions / mask): queries from
+    ``x`` [B,T,D], keys and values from ``ctx`` [B,S,D]."""
+    dims = attn_dims(cfg)
+    q, k, v = _project_qkv(p, x, ctx, dims)
+    y = reference_attention(q, k, v, causal=False)
     return _merge_heads(p, y)

@@ -47,8 +47,8 @@ class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
         if cfg.family == "encdec":
-            raise NotImplementedError(f"{cfg.name}: encoder-decoder models "
-                                      f"are not ported yet")
+            raise ValueError(f"{cfg.name}: an encoder-decoder model is "
+                             f"built by models.encdec.EncDec")
         dt = getattr(torch, cfg.dtype)
         self.cfg = cfg
         pattern = cfg.pattern()

@@ -11,8 +11,10 @@ multiple of the warps of a block, depths clamped by the item count, a
 grid with more sets than ways, addresses that wrap in int32, attention
 tiles that the causal diagonal, the window, the tail or a query offset
 cut, the wgmma route's tiles one past and one short (Sq, Sk around 128
-query rows and 64 keys, D 64 and 128), paged decode attention split across
-blocks at lengths that cross split boundaries, zero-length rows, rep 1 to 8,
+query rows and 64 keys, D 64 and 128; whisper's encoder shape, 12
+non-causal heads of 64 over 2,048 and 4,096 frames), paged decode
+attention split across blocks at lengths that cross split boundaries,
+zero-length rows, rep 1 to 8,
 D 64, 80 and 128, pages of 16 and 32 and 8 rows of 4,096 tokens, MoE
 dispatch and combine at T = 1, K = 1 and 8, and with every choice dropped
 (combine bit for bit at T 1 to 4,096, its rows split over blocks and not),
@@ -26,8 +28,8 @@ negative streams, max_ways 1 and 32 and 1,024 sets,
 and SSD scans of one chunk, one head, a ragged last chunk and
 4,096 rows whose decay exponents would overflow above the diagonal, on
 the scalar and the tensor-core route (P and N 64 and 128).  The
-last cases run the MoE and SSM model paths on the card and count their
-launches.
+last cases run the MoE, SSM and encoder-decoder model paths on the card
+and count their launches.
 """
 import numpy as np
 import pytest
@@ -407,6 +409,27 @@ def test_flash_attention_at_the_wgmma_tile_edges(card, d, sq, sk, causal,
         <= FLASH_TOL[torch.bfloat16]
     assert (lse - want_lse).abs().max().item() <= 1e-4
     assert _tiled_gate(y, q, k, v, "mma", **mask) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("s", [2048, 4096])
+def test_flash_attention_at_whispers_encoder_shape(card, dtype, s):
+    """whisper-small's encoder self-attention: non-causal, 12 heads of 64
+    (bf16 takes the wgmma route, f32 the scalar one, as in chip_smoke.py
+    phase 14's float32 check) over 2,048 and 4,096 frames."""
+    q, k, v = _qkv(2, 12, s, s, 64, dtype, card, seed=11)
+    before = fa_kernel.flash_attention.launches
+    y, lse = fa_kernel.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    want_y, want_lse = fa_ref.attention_ref(q, k, v, causal=False)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(lse).all()
+    assert (y.float() - want_y.float()).abs().max().item() <= FLASH_TOL[dtype]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    route = fa_kernel.route(dtype, 64)
+    assert route == ("mma" if dtype == torch.bfloat16 else "simt")
+    if dtype == torch.bfloat16:
+        assert _tiled_gate(y, q, k, v, route, causal=False) <= 1.0
 
 
 @pytest.mark.parametrize("triangular,window", [(False, None), (True, None),
@@ -855,3 +878,47 @@ def test_model_paths_launch_the_kernels(card, arch):
     has_ssm = any(s.mixer == "ssm" for s in cfg.pattern())
     assert (moved[0] > 0 and moved[1] > 0) == has_moe
     assert (moved[2] > 0) == has_ssm
+
+
+def test_encdec_path_launches_flash_once_an_encoder_layer(card):
+    """whisper-small's smoke model at 2,048 frames: the encoder's blocked
+    attention runs the flash kernel once a layer in prefill and in
+    ``encode``; prefill and 4 decode steps on ``precompute_cross``'s K/V
+    agree with the same model on the CPU (float32, 1e-3)."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import api, encdec
+
+    cfg = dataclasses.replace(registry.smoke("whisper-small"),
+                              dtype="float32")
+    cpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu") \
+        .to(card)
+    rng = np.random.default_rng(0)
+    batch = {"frames": rng.normal(size=(2, 2048, cfg.d_model))
+             .astype(np.float32),
+             "dec_tokens": rng.integers(0, cfg.vocab_size, (2, 16))
+             .astype(np.int32)}
+    before = fa_kernel.flash_attention.launches
+    with torch.no_grad():
+        want = api.prefill(cpu, batch, cfg, device="cpu")
+        got = api.prefill(gpu, batch, cfg, device=card)
+        torch.cuda.synchronize()
+        assert fa_kernel.flash_attention.launches \
+            == before + cfg.n_encoder_layers
+        assert (got.cpu() - want).abs().max().item() <= 1e-3
+        caches = []
+        for m, d in ((cpu, "cpu"), (gpu, card)):
+            c = api.init_cache(cfg, 2, 8, device=d)
+            frames = torch.from_numpy(batch["frames"]).to(d)
+            c["cross_k"], c["cross_v"] = encdec.precompute_cross(
+                m, encdec.encode(m, frames, cfg), cfg)
+            caches.append(c)
+        assert fa_kernel.flash_attention.launches \
+            == before + 2 * cfg.n_encoder_layers
+        tok = batch["dec_tokens"]
+        for t in range(4):
+            lo = [api.decode(m, tok[:, t:t + 1], c, cfg)[0]
+                  for m, c in ((cpu, caches[0]), (gpu, caches[1]))]
+            assert (lo[1].cpu() - lo[0]).abs().max().item() <= 1e-3

@@ -13,8 +13,8 @@ for the MoE archs: a token whose top-k is a near tie (a margin under 1e-4
 in probability occurs in these 8 steps) takes another expert in one
 framework after the two round the residual stream differently.
 
-``launch/serve_lm.py`` runs both modes end to end on the CPU, and wants
-the card when no device is given.
+``launch/serve_lm.py`` runs both modes end to end on the CPU, wants the
+card when no device is given, and refuses the encoder-decoder arch.
 """
 import dataclasses
 
@@ -154,6 +154,15 @@ def test_serve_lm_legacy_mode_on_the_cpu(arch):
 def test_serve_lm_refuses_an_ssm_arch_in_engine_mode():
     with pytest.raises(SystemExit, match="--legacy"):
         serve_lm.main(["--device", "cpu", "--arch", "mamba2-2.7b"])
+
+
+@pytest.mark.parametrize("mode", [[], ["--legacy"]])
+def test_serve_lm_refuses_the_encdec_arch(mode):
+    """whisper-small decodes against its encoder's cross K/V, which the
+    example does not make (it would decode against zeros): both modes
+    refuse and name the phase of chip_smoke.py that serves it."""
+    with pytest.raises(SystemExit, match="phase 14"):
+        serve_lm.main(["--device", "cpu", "--arch", "whisper-small", *mode])
 
 
 def test_serve_lm_cuts_depth_and_takes_full_widths():
