@@ -1,5 +1,6 @@
-"""Drive the PyTorch port's serving, runahead, training, MoE, SSM and
-encoder-decoder paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, runahead, training, MoE, SSM,
+encoder-decoder and cache-reconfiguration paths on one CUDA card and check
+them.
 
     python3 chip_smoke.py
 
@@ -88,7 +89,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     the card's float32 prefill against the CPU path's (2 + 2 layers, B 1,
     1e-4 of the logit std) and prefill against 64 teacher-forced decode
     steps (float32, 2 + 2 layers, 1e-4 of the logit std), and report the
-    bfloat16 full-depth gap.
+    bfloat16 full-depth gap;
+15. run the paper's §3.4 loop, ``reconfig.reconfigure`` at
+    ``presets.RECONFIG``, for the ten Table-1 kernels with its profile on
+    the card, at window 8,192 and over whole per-cache streams: the
+    ``cache_grid_scan`` counter set to 0 just before and read just after
+    must equal the non-empty streams, and ``h_curves`` must equal the CPU
+    route's bit for bit, allocations, lines, profit and configuration
+    too; time one reconfigure's profile (wall, and the kernels by graph
+    replay) against the CPU route, and simulate the base and reconfigured
+    systems, runahead off and on, against the paper's Fig. 17 averages.
+    Then Algorithm 1 as an operand allocator at dbrx-132b's published
+    width (block 0's router and the 100,352 x 6,144 embedding, random,
+    seed 0; 8 x 4,096 seeded tokens): ``core.runahead.allocate`` on the
+    card must equal the CPU route's plan, and ``ops.gather`` at the plan's
+    depth must be bit-identical to ``embed[tokens]``, with exactly 2
+    profiler launches and 1 gather; the gather timed by graph replay
+    against ``index_select`` and its bound.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -146,6 +163,17 @@ DBRX_LAYERS = 8
 # own 1,500 fail blocked attention's chunk assertion in both packages
 WHISPER_B, WHISPER_FRAMES, WHISPER_DECODE = 8, 4_096, 32
 WHISPER_CHECK_TOKENS = 64
+# the paper's Table-1 kernels in its figures' order (benchmarks/common.py)
+PAPER_KERNELS = ("gcn_citeseer", "gcn_cora", "gcn_pubmed", "gcn_ogbn_arxiv",
+                 "grad", "perm_sort", "radix_hist", "radix_update", "rgb",
+                 "src2dest")
+FIG17_WINDOW = 8_192           # benchmarks/fig17_reconfig.py's window
+# Fig. 17's average gains, %: real / random data, without / with runahead
+FIG17_PAPER = {"real_nora": 4.59, "real_ra": 3.22, "rand_nora": 2.10,
+               "rand_ra": 1.58}
+# the allocator's batch (tokens) and budget (32 KiB tiles), as in
+# examples/autotune_vmem.py but at train_4k's sequence
+ALLOC_B, ALLOC_S, ALLOC_BUDGET = 8, 4_096, 16
 
 
 def card_line() -> str:
@@ -1827,6 +1855,260 @@ def phase_whisper(cfg, flush: torch.Tensor) -> tuple[int, dict]:
     return launches, times
 
 
+
+def reconfig_gate(name: str, window, got, want) -> float:
+    """The card's reconfiguration against the CPU route's: ``h_curves``
+    bit for bit, and allocations, lines, profit and configuration equal.
+    Returns the largest |card - CPU| over ``h_curves`` (0 when it passes)."""
+    err = float(np.abs(got.h_curves - want.h_curves).max())
+    same = (got.h_curves.dtype == want.h_curves.dtype
+            and got.h_curves.shape == want.h_curves.shape
+            and got.h_curves.tobytes() == want.h_curves.tobytes()
+            and got.allocations == want.allocations
+            and got.lines == want.lines and got.profit == want.profit
+            and got.config == want.config)
+    if not same:
+        raise AssertionError(
+            f"reconfigure {name} window {window}: the card's result differs "
+            f"from the CPU route's (h_curves max abs diff {err}; allocations "
+            f"{got.allocations} vs {want.allocations}, lines {got.lines} vs "
+            f"{want.lines}, profit {got.profit} vs {want.profit})")
+    return err
+
+
+def profile_times(streams, flush) -> dict:
+    """One reconfigure's profile (``profile_curves`` over
+    ``reconfigure``'s grid for ``presets.RECONFIG``): host wall ms on the
+    card and on the CPU route, and the card's kernels, one launch per
+    non-empty stream, by graph replay."""
+    from repro_torch.core.cgra import cache_grid
+    from repro_torch.core.cgra.reconfig import profile_curves
+
+    ways, lines, way_bytes = list(range(33)), (16, 32, 64, 128), 512
+
+    def wall_ms(dev: str, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            profile_curves(streams, ways, lines, way_bytes, device=dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    grid = cache_grid.ConfigGrid.build(way_bytes, ways, lines)
+    kernel_ms = []
+    for addrs, _ in streams:
+        if addrs.size:
+            a = cache_grid.as_int32(addrs, "cuda")
+            kernel_ms.append(graph_ms(
+                lambda: cache_grid.cache_grid_scan(a, grid), flush, 20))
+    wall_ms("cuda", 2)                                   # warm-up
+    return dict(card_wall_ms=wall_ms("cuda", 5), cpu_wall_ms=wall_ms("cpu", 3),
+                kernel_ms=sum(kernel_ms), launches=len(kernel_ms),
+                accesses=int(sum(a.size for a, _ in streams)))
+
+
+def phase_reconfig(flush: torch.Tensor) -> dict:
+    """Fig. 17's loop through ``reconfig.reconfigure`` for the ten Table-1
+    kernels at ``presets.RECONFIG``, its profile on the card, at window
+    8,192 and over whole per-cache streams (window None): the
+    ``cache_grid_scan`` counter set to 0 just before and read just after
+    each window's ten calls, held to the number of non-empty streams; each
+    result held to the CPU route's.  Then one reconfigure's profile timed,
+    and the base and reconfigured systems simulated, runahead off and on."""
+    from repro_torch.core.cgra import cache_grid, presets, simulator
+    from repro_torch.core.cgra.reconfig import reconfigure, sample_streams
+    from repro_torch.core.cgra.trace import KERNELS, REAL_DATA_KERNELS
+
+    t0 = time.monotonic()
+    traces = {name: KERNELS[name]() for name in PAPER_KERNELS}
+    base = presets.RECONFIG
+    print(f"phase 15: the ten Table-1 traces ({sum(map(len, traces.values()))}"
+          f" accesses) built on the host in {time.monotonic() - t0:.2f} s",
+          flush=True)
+    launches, results, err = {}, {}, 0.0
+    for window in (FIG17_WINDOW, None):
+        sizes = [a.size for tr in traces.values()
+                 for a, _ in sample_streams(tr, base, window)]
+        expect = sum(n > 0 for n in sizes)
+        torch.cuda.synchronize()
+        cache_grid.cache_grid_scan.launches = 0
+        t0 = time.perf_counter()
+        card = {name: reconfigure(tr, base, window=window, device="cuda")
+                for name, tr in traces.items()}
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches[window] = cache_grid.cache_grid_scan.launches
+        if launches[window] != expect:
+            raise AssertionError(f"reconfigure window {window}: "
+                                 f"{launches[window]} cache_grid_scan "
+                                 f"launches, want one per non-empty stream "
+                                 f"({expect})")
+        t0 = time.perf_counter()
+        host = {name: reconfigure(tr, base, window=window, device="cpu")
+                for name, tr in traces.items()}
+        host_s = time.perf_counter() - t0
+        for name in traces:
+            err = max(err, reconfig_gate(name, window, card[name],
+                                         host[name]))
+        results[window] = card
+        print(f"phase 15: reconfigure, window {window}: "
+              f"{launches[window]} cache_grid_scan launches = the non-empty "
+              f"streams of {len(sizes)} ({min(n for n in sizes if n)}-"
+              f"{max(sizes)} addresses, {sum(sizes)} in all); h_curves bit-"
+              f"identical to the CPU route's and allocations, lines, profit "
+              f"and config equal for all ten; wall {card_s:.3f} s on the "
+              f"card vs {host_s:.3f} s on the CPU route (ten kernels, "
+              f"sampling and DP included); allocations "
+              f"{json.dumps({n: r.allocations for n, r in card.items()})}",
+              flush=True)
+    card_line_ = card_line()
+    times = {}
+    for window in (FIG17_WINDOW, None):
+        streams = sample_streams(traces["gcn_cora"], base, window)
+        times[window] = profile_times(streams, flush)
+        t = times[window]
+        print(f"phase 15: one reconfigure's profile (gcn_cora, window "
+              f"{window}, {t['accesses']} addresses, 4 streams x 132 "
+              f"configurations): wall {t['card_wall_ms']:.3f} ms on the card "
+              f"vs {t['cpu_wall_ms']:.3f} ms on the CPU route "
+              f"({t['cpu_wall_ms'] / t['card_wall_ms']:.1f}x); its "
+              f"{t['launches']} cache_grid_scan launches "
+              f"{t['kernel_ms']:.4f} ms by graph replay; {card_line_}",
+              flush=True)
+
+    gains = {key: [] for key in FIG17_PAPER}
+    t0 = time.monotonic()
+    for name, tr in traces.items():
+        res = results[FIG17_WINDOW][name]
+        cfgs = [dataclasses.replace(c, runahead=ra)
+                for c in (base, res.config) for ra in (False, True)]
+        b0, b1, n0, n1 = simulator.simulate_batch(tr, cfgs)
+        kind = "real" if name in REAL_DATA_KERNELS else "rand"
+        g0 = (b0.cycles - n0.cycles) / b0.cycles
+        g1 = (b1.cycles - n1.cycles) / b1.cycles
+        gains[f"{kind}_nora"].append(g0)
+        gains[f"{kind}_ra"].append(g1)
+        print(f"phase 15: fig 17 {name}: ways {res.allocations} lines "
+              f"{res.lines}: cycles {b0.cycles} -> {n0.cycles} ({g0:+.2%}) "
+              f"no runahead, {b1.cycles} -> {n1.cycles} ({g1:+.2%}) "
+              f"runahead", flush=True)
+    avg = {key: 100 * statistics.fmean(v) for key, v in gains.items()}
+    print(f"phase 15: fig 17 average gains, % (simulated on the host in "
+          f"{time.monotonic() - t0:.2f} s): "
+          + "; ".join(f"{key} {avg[key]:+.2f} (paper {FIG17_PAPER[key]:+.2f})"
+                      for key in FIG17_PAPER), flush=True)
+    return dict(launches=sum(launches.values()), err=err,
+                profile=times[FIG17_WINDOW], profile_whole=times[None],
+                gains=avg)
+
+
+def phase_allocator(flush: torch.Tensor) -> dict:
+    """Algorithm 1 as an operand allocator at dbrx-132b's published width:
+    block 0's MoE and the embedding on the card (random, seed 0), a seeded
+    batch of 8 x 4,096 tokens, the reference example's two streams
+    (embedding rows and expert-weight rows), ``allocate`` on the card
+    (held to the CPU route's plan), then the embedding gather at the
+    plan's depth through ``ops.gather`` (bit-identical to ``embed[tokens]``),
+    with the profiler and gather counters set to 0 just before and read
+    just after; the gather timed against ``index_select`` and its bound."""
+    from repro_torch.configs import registry
+    from repro_torch.core.cgra import cache_grid
+    from repro_torch.core.runahead import allocate
+    from repro_torch.kernels.gather_runahead import gather_runahead as kernel
+    from repro_torch.kernels.gather_runahead import ops, ref
+    from repro_torch.models import layers, moe
+
+    cfg = registry.get("dbrx-132b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    block = moe.MoE(cfg, device="cuda")
+    block.reset_parameters(gen)
+    embed = torch.empty((cfg.vocab_size, cfg.d_model),
+                        dtype=getattr(torch, cfg.dtype), device="cuda")
+    layers.dense_init_(embed, gen)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (ALLOC_B, ALLOC_S)).astype(np.int32)).cuda()
+    flat = tokens.reshape(-1)
+    with torch.no_grad():
+        routing = moe.routing_trace(block, embed[flat.long()], cfg)
+    del block
+    torch.cuda.empty_cache()
+    streams = {"vocab_embedding": flat.cpu().numpy(),
+               "moe_expert_rows": routing.reshape(-1).cpu().numpy()}
+    row_bytes = {"vocab_embedding": cfg.d_model * 2,     # bf16 rows
+                 "moe_expert_rows": cfg.d_ff * 2}
+    top = max(int(streams[k].max()) * row_bytes[k] for k in streams)
+    counters = {"cache_grid_scan": cache_grid.cache_grid_scan,
+                "runahead_gather": kernel.runahead_gather}
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    plan = allocate(streams, budget_tiles=ALLOC_BUDGET, row_bytes=row_bytes)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    n, row = flat.shape[0], cfg.d_model * embed.element_size()
+    block_rows = next(b for b in (8, 4, 2, 1) if min(plan.depth, n // b)
+                      * b * row <= kernel.MAX_SMEM_BYTES)
+    out = ops.gather(embed, flat, impl="runahead", block_rows=block_rows,
+                     depth=plan.depth)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if launches != {"cache_grid_scan": 2, "runahead_gather": 1}:
+        raise AssertionError(f"allocator path launches {launches}; want 2 "
+                             f"profiles and 1 gather")
+    t0 = time.perf_counter()
+    host = allocate(streams, budget_tiles=ALLOC_BUDGET, row_bytes=row_bytes,
+                    device="cpu")
+    host_s = time.perf_counter() - t0
+    if plan != host:
+        raise AssertionError(f"allocate on the card {plan} != on the CPU "
+                             f"route {host}")
+    want = embed[flat.long()]
+    err = (out.float() - want.float()).abs().max().item()
+    if not bit_equal(out, want):
+        raise AssertionError(f"runahead gather at depth {plan.depth}, "
+                             f"block_rows {block_rows}: not bit-identical to "
+                             f"embed[tokens] (max abs err {err})")
+    print(f"phase 15: {cfg.name} at published width (embedding "
+          f"{cfg.vocab_size} x {cfg.d_model} {cfg.dtype}, block 0's router "
+          f"over {cfg.n_experts} experts top-{cfg.top_k}), tokens "
+          f"{ALLOC_B} x {ALLOC_S}: streams "
+          f"{ {k: int(v.size) for k, v in streams.items()} } (largest address "
+          f"{top}); plan on the card == the CPU route's: "
+          + ", ".join(f"{p.name} {p.tiles} tiles / {p.dma_bytes} B lines / "
+                      f"hit rate {p.hit_rate:.6f}" for p in plan.streams)
+          + f", depth {plan.depth}, profit {plan.total_profit:.6f}; allocate "
+          f"wall {card_s * 1e3:.1f} ms on the card vs {host_s * 1e3:.1f} ms "
+          f"on the CPU route; launches {json.dumps(launches)}; gather at "
+          f"depth {plan.depth}, block_rows {block_rows} bit-identical to "
+          f"embed[tokens]", flush=True)
+
+    def run():
+        return kernel.runahead_gather(embed, flat, block_rows=block_rows,
+                                      depth=plan.depth)
+
+    ms, eager_ms = graph_ms(run, flush), time_ms(run, flush)
+    depth2_ms = graph_ms(lambda: kernel.runahead_gather(
+        embed, flat, block_rows=BLOCK_ROWS, depth=2), flush)
+    library_ms = graph_ms(lambda: torch.index_select(embed, 0, flat), flush)
+    plain_ms = time_ms(lambda: ref.gather_ref(embed, flat), flush)
+    distinct = torch.unique(flat).numel()
+    n_bytes = distinct * row + n * 4 + n * row
+    bound = n_bytes / MEM_BYTES_PER_S * 1e3
+    print(f"phase 15: gather {n} rows of {row} B at the plan's depth "
+          f"{plan.depth} (block_rows {block_rows}): ms={ms:.4f} (graph "
+          f"replay; eager {eager_ms:.4f}); depth 2 x {BLOCK_ROWS} rows "
+          f"{depth2_ms:.4f}; plain_ms={plain_ms:.4f} library_ms="
+          f"{library_ms:.4f} (index_select, graph replay) bound_ms="
+          f"{bound:.4f} ({n_bytes} bytes: {distinct} distinct rows read, "
+          f"{n} written) bytes-bound; {card_line()}", flush=True)
+    return dict(launches=launches, err=err, depth=plan.depth,
+                block_rows=block_rows, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", library_ms=library_ms,
+                depth2_ms=depth2_ms)
+
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
     from repro_torch.models import api
@@ -1934,6 +2216,9 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     whisper_launches, whisper_flash = phase_whisper(
         registry.get("whisper-small"), flush)
+    torch.cuda.empty_cache()
+    reconf = phase_reconfig(flush)
+    alloc = phase_allocator(flush)
     del flush
 
     kernels = [{
@@ -1943,13 +2228,32 @@ def main() -> int:
                 "pipelined_gather": f"{GATHER_REPLACES}:117",
                 "gather_bag": f"{GATHER_REPLACES}:177",
                 "cache_grid_scan": GRID_REPLACES}
+    # phase 15's launches and numbers beside phase 6-7's
+    later = {"runahead_gather": (alloc["launches"]["runahead_gather"],
+                                 alloc["err"], "allocator_gather", {
+                                     k: alloc[k] for k in (
+                                         "ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms", "depth",
+                                         "block_rows", "depth2_ms")}),
+             "cache_grid_scan": (reconf["launches"]
+                                 + alloc["launches"]["cache_grid_scan"],
+                                 reconf["err"], "reconfig_profile", {
+                                     "window_8192": reconf["profile"],
+                                     "window_none": reconf["profile_whole"]})}
     for name, where in replaces.items():
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
             "source": GRID_SOURCE if name == "cache_grid_scan"
             else GATHER_SOURCE,
             "replaces": where, "launches": stats["launches"][name],
-            "max_abs_err": stats["errs"][name], **times[name]})
+            "max_abs_err": stats["errs"][name], **times[name]}
+        if name in later:
+            n15, err15, key, extra = later[name]
+            entry["launches_by_phase"] = {"6": entry["launches"], "15": n15}
+            entry["launches"] += n15
+            entry["max_abs_err"] = max(entry["max_abs_err"], err15)
+            entry[key] = extra
+        kernels.append(entry)
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,

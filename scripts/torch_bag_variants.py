@@ -55,7 +55,7 @@ from repro_torch.kernels.gather_runahead import ref  # noqa: E402
 
 DEV = ROOT / "build" / "dev"
 # the kernel source the variants below are written against
-SOURCE_SHA256 = "88d49c835b701f93a2a607145c892caff899a4766d4f69a813ccc14f68fde8db"
+SOURCE_SHA256 = "e930f37f196ceac2a92574cf769a6e04fc2589f77512699c6966d328f8db8961"
 COPY = "cp_async16(dst + c * 16, src + c * 16);"
 REPEAT = "lane > 0 && my_w == 0.f && prev_w == 0.f && my_slot == prev_slot"
 PASSES = ("  if (chunks <= 32)\n", "  if (chunks <= 64)\n")

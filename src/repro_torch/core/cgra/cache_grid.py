@@ -339,5 +339,15 @@ def hit_series(addrs, grid: ConfigGrid, device=None) -> torch.Tensor:
 
 
 def miss_counts(addrs, grid: ConfigGrid, device=None) -> torch.Tensor:
-    """[C] total misses per configuration (int64)."""
-    return (~hit_series(addrs, grid, device)).sum(dim=1)
+    """[C] total misses per configuration (int64), on ``device`` (CUDA
+    when None).  A CPU tensor takes :func:`hit_series_stack_ref`, the same
+    function as :func:`hit_series`' plain loop, which skips the repeats
+    of a set's last tag and steps no configuration it does not touch."""
+    a = as_int32(addrs, resolve_device(device))
+    if a.device.type == "cpu":
+        hits = hit_series_stack_ref(a, grid)
+    elif a.device.type == "cuda":
+        hits = cache_grid_scan(a, grid)
+    else:
+        raise ValueError(f"miss_counts: no kernel for device {a.device}")
+    return (~hits).sum(dim=1)

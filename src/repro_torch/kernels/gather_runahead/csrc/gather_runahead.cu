@@ -23,9 +23,11 @@
 // bytes in flight to run at its rate.  Design against that:
 //   * the runahead gather keeps, per block, a `depth`-stage ring of
 //     [block_rows, row] tiles in shared memory, filled by cp.async (16 B a
-//     lane, one warp per row).  Tile k is written out, then tile k + depth
-//     is issued into its stage: depth * block_rows rows in flight per
-//     block, the TPU kernel's window of DMAs, with no registers held;
+//     lane, one warp per row); `depth` is 1..16, every depth the
+//     Algorithm-1 allocator (core/runahead/vmem_allocator.py) plans.
+//     Tile k is written out, then tile k + depth is issued into its
+//     stage: depth * block_rows rows in flight per block, the TPU
+//     kernel's window of DMAs, with no registers held;
 //   * the baseline gives each row to one warp that loads it into registers
 //     and stores it, with no ring: its reads in flight are what the warp
 //     scheduler happens to overlap.
@@ -82,7 +84,8 @@
 namespace {
 
 constexpr int kGatherWarps = 8;  // warps per block of the two row gathers
-constexpr int kMaxDepth = 8;
+constexpr int kMaxRunaheadDepth = 16;  // the runahead gather's ring stages
+constexpr int kMaxBagDepth = 8;
 constexpr int kBagWarps = 4;     // most warps a block of the bag holds
 constexpr int kBagFlight = 8;    // most batches a warp of the bag has in flight
 constexpr size_t kMaxSmemBytes = 232448;  // dynamic shared memory a block
@@ -583,8 +586,10 @@ int bag_dtype(int dtype, Args... args) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-static_assert(kMaxDepth == 8 && kBagFlight == 8,
-              "the depth and flight switches instantiate 1..8");
+static_assert(kMaxRunaheadDepth == 16,
+              "the runahead depth switch instantiates 1..16");
+static_assert(kMaxBagDepth == 8 && kBagFlight == 8,
+              "the bag's depth and flight switches instantiate 1..8");
 
 }  // namespace
 
@@ -592,23 +597,24 @@ extern "C" {
 
 // Every function returns a cudaError_t: 0 = launched.
 
-// n_tiles = n / block_rows index blocks; depth in 1..8; grid_blocks > 0
+// n_tiles = n / block_rows index blocks; depth in 1..16 (the wrapper
+// refuses a ring over shared memory); grid_blocks > 0
 // caps the number of blocks (0 = fill the card at the kernel's occupancy).
 int runahead_gather_launch(const void* table, const void* idx, void* out,
                            int n_tiles, int block_rows, int row_bytes,
                            int depth, int grid_blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = n_tiles, b = block_rows, r = row_bytes, g = grid_blocks;
+#define RUNAHEAD_CASE(D) \
+  case D:                 \
+    return launch_runahead<D>(table, idx, out, n, b, r, g, s);
   switch (depth) {
-    case 1: return launch_runahead<1>(table, idx, out, n, b, r, g, s);
-    case 2: return launch_runahead<2>(table, idx, out, n, b, r, g, s);
-    case 3: return launch_runahead<3>(table, idx, out, n, b, r, g, s);
-    case 4: return launch_runahead<4>(table, idx, out, n, b, r, g, s);
-    case 5: return launch_runahead<5>(table, idx, out, n, b, r, g, s);
-    case 6: return launch_runahead<6>(table, idx, out, n, b, r, g, s);
-    case 7: return launch_runahead<7>(table, idx, out, n, b, r, g, s);
-    case 8: return launch_runahead<8>(table, idx, out, n, b, r, g, s);
+    RUNAHEAD_CASE(1) RUNAHEAD_CASE(2) RUNAHEAD_CASE(3) RUNAHEAD_CASE(4)
+    RUNAHEAD_CASE(5) RUNAHEAD_CASE(6) RUNAHEAD_CASE(7) RUNAHEAD_CASE(8)
+    RUNAHEAD_CASE(9) RUNAHEAD_CASE(10) RUNAHEAD_CASE(11) RUNAHEAD_CASE(12)
+    RUNAHEAD_CASE(13) RUNAHEAD_CASE(14) RUNAHEAD_CASE(15) RUNAHEAD_CASE(16)
   }
+#undef RUNAHEAD_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -629,7 +635,7 @@ int pipelined_gather_launch(const void* table, const void* idx, void* out,
 int gather_bag_launch(int dtype, const void* table, const void* idx,
                       const void* w, void* out, int S, int K, int D,
                       int depth, void* stream) {
-  if (depth < 1 || depth > kMaxDepth)
+  if (depth < 1 || depth > kMaxBagDepth)
     return static_cast<int>(cudaErrorInvalidValue);
   return bag_dtype(dtype, depth, table, idx, w, out, S, K, D,
                    static_cast<cudaStream_t>(stream),
@@ -638,7 +644,7 @@ int gather_bag_launch(int dtype, const void* table, const void* idx,
 
 // The warps of the bag an SM holds at these arguments, into *warps.
 int gather_bag_warps_per_sm(int dtype, int K, int D, int depth, int* warps) {
-  if (depth < 1 || depth > kMaxDepth)
+  if (depth < 1 || depth > kMaxBagDepth)
     return static_cast<int>(cudaErrorInvalidValue);
   return bag_dtype(dtype, depth, nullptr, nullptr, nullptr, nullptr, 1, K,
                    D, static_cast<cudaStream_t>(nullptr), warps);

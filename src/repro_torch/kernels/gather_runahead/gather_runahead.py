@@ -17,7 +17,8 @@ import torch
 
 from .. import _build
 
-MAX_DEPTH = 8                    # the kernels are instantiated for 1..8
+MAX_RUNAHEAD_DEPTH = 16          # runahead_gather is instantiated for 1..16
+MAX_BAG_DEPTH = 8                # gather_bag for 1..8
 MAX_SMEM_BYTES = 232_448         # dynamic shared memory a Hopper block may use
 MAX_BAG_ROW_BYTES = 2048         # the bag's accumulator: 4 x 32 lanes x 16 B
 _BAG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -64,10 +65,10 @@ def _check_rows(who: str, table: torch.Tensor) -> int:
     return row_bytes
 
 
-def _check_depth(who: str, depth: int, items: int) -> int:
-    """The reference's clamp ``min(depth, items)``, within 1..MAX_DEPTH."""
-    if not 1 <= depth <= MAX_DEPTH:
-        raise ValueError(f"{who}: depth={depth} not in 1..{MAX_DEPTH}")
+def check_depth(who: str, depth: int, items: int, most: int) -> int:
+    """The reference's clamp ``min(depth, items)``, within 1..most."""
+    if not 1 <= depth <= most:
+        raise ValueError(f"{who}: depth={depth} not in 1..{most}")
     return max(1, min(depth, items))
 
 
@@ -111,7 +112,7 @@ def runahead_gather(table: torch.Tensor, idx: torch.Tensor, *,
         raise ValueError(f"{who}: n={n} is not a multiple of "
                          f"block_rows={block_rows}")
     n_tiles = n // block_rows
-    depth = _check_depth(who, depth, n_tiles)
+    depth = check_depth(who, depth, n_tiles, MAX_RUNAHEAD_DEPTH)
     if depth * block_rows * row_bytes > MAX_SMEM_BYTES:
         raise ValueError(f"{who}: a ring of {depth} x {block_rows} rows of "
                          f"{row_bytes} bytes exceeds {MAX_SMEM_BYTES} bytes "
@@ -174,7 +175,7 @@ def gather_bag(table: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
         raise ValueError(f"{who}: a row of {row_bytes} bytes exceeds the "
                          f"kernel's {MAX_BAG_ROW_BYTES}-byte accumulator")
     s, k = idx.shape
-    depth = _check_depth(who, depth, s)
+    depth = check_depth(who, depth, s, MAX_BAG_DEPTH)
     # a warp's ring holds one batch, at most 32 rows of at most 2048 bytes
     # (64 KB), so every shape the checks above pass fits a block
     out = torch.empty((s, table.shape[1]), dtype=table.dtype, device=device)

@@ -19,16 +19,19 @@ def gather(table, idx, *, impl: str = "runahead", block_rows: int = 8,
     """out[i] = table[idx[i]].
 
     impl: "runahead" (a ring of ``depth`` index blocks of ``block_rows``
-    rows in flight; ``depth`` is the MSHR analogue), "pipelined" (one row
-    per warp, the baseline), or "reference" (the plain version, on any
-    device).
+    rows in flight; ``depth``, in 1..16, is the MSHR analogue),
+    "pipelined" (one row per warp, the baseline), or "reference" (the
+    plain version, on any device).
     """
     if impl not in IMPLS:
         raise ValueError(f"gather: impl={impl!r} not in {IMPLS}")
     if impl == "reference" or table.device.type == "cpu":
-        if impl == "runahead" and idx.shape[0] % block_rows:
-            raise ValueError(f"runahead_gather: n={idx.shape[0]} is not a "
-                             f"multiple of block_rows={block_rows}")
+        if impl == "runahead":     # the kernel's contract, on any device
+            if idx.shape[0] % block_rows:
+                raise ValueError(f"runahead_gather: n={idx.shape[0]} is not "
+                                 f"a multiple of block_rows={block_rows}")
+            kernel.check_depth("runahead_gather", depth, 1,
+                               kernel.MAX_RUNAHEAD_DEPTH)
         return ref.gather_ref(table, idx)
     if table.device.type != "cuda":
         raise ValueError(f"gather: no kernel for device {table.device}")

@@ -35,7 +35,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.cgra import cache_grid
+from repro_torch.core.cgra import cache_grid, presets
+from repro_torch.core.cgra.reconfig import reconfigure, sample_streams
+from repro_torch.core.cgra.trace import KERNELS
+from repro_torch.core.runahead import allocate
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -90,8 +93,9 @@ def test_gather_wrappers_refuse_what_the_kernels_do_not_take(card):
     idx = torch.zeros(12, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="multiple of block_rows"):
         kernel.runahead_gather(table, idx, block_rows=8)
-    with pytest.raises(ValueError, match="depth"):
-        kernel.runahead_gather(table, idx, block_rows=4, depth=9)
+    for depth in (0, kernel.MAX_RUNAHEAD_DEPTH + 1):
+        with pytest.raises(ValueError, match="depth"):
+            kernel.runahead_gather(table, idx, block_rows=4, depth=depth)
     with pytest.raises(ValueError, match="grid_blocks"):
         kernel.runahead_gather(table, idx, block_rows=4, grid_blocks=0)
     with pytest.raises(ValueError, match="16"):
@@ -100,6 +104,82 @@ def test_gather_wrappers_refuse_what_the_kernels_do_not_take(card):
         kernel.pipelined_gather(table, idx.long())
     empty = kernel.runahead_gather(table, idx[:0])
     assert empty.shape == (0, 32)
+
+
+@pytest.mark.parametrize("depth", range(9, 17))
+@pytest.mark.parametrize("v,d,dtype,n,block_rows,grid_blocks", [
+    (4096, 64, torch.float32, 8000, 8, None),
+    (1000, 128, torch.bfloat16, 640, 2, 3),    # each block's ring wraps
+    (300, 200, torch.float32, 36, 3, None),    # 12 tiles: depth clamps
+])
+def test_runahead_gather_at_the_allocators_depths(card, depth, v, d, dtype,
+                                                   n, block_rows,
+                                                   grid_blocks):
+    """Depths 9 to 16, which ``core.runahead.allocate`` plans, bit for
+    bit."""
+    table = _table(v, d, dtype, 0, card)
+    idx = torch.from_numpy(np.random.default_rng(depth).integers(
+        0, v, n).astype(np.int32)).to(card)
+    out = kernel.runahead_gather(table, idx, block_rows=block_rows,
+                                 depth=depth, grid_blocks=grid_blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(ref.gather_ref(table, idx)))
+    assert torch.equal(_bits(ops.gather(table, idx, impl="runahead",
+                                        block_rows=block_rows,
+                                        depth=depth)), _bits(out))
+
+
+def test_runahead_gather_ring_at_the_shared_memory_limit(card):
+    """A ring of 16 one-row tiles that fills a block's shared memory
+    exactly runs; 16 bytes more a row is refused, unless the depth clamps
+    to fewer tiles first (the reference's min(depth, n_blocks))."""
+    fits = kernel.MAX_SMEM_BYTES // (16 * 4)          # 3,632 f32: 14,528 B
+    assert 16 * fits * 4 == kernel.MAX_SMEM_BYTES
+    idx = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 40, 64).astype(np.int32)).to(card)
+    table = _table(40, fits, torch.float32, 0, card)
+    out = kernel.runahead_gather(table, idx, block_rows=1, depth=16)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(ref.gather_ref(table, idx)))
+    wide = _table(40, fits + 4, torch.float32, 0, card)
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.runahead_gather(wide, idx, block_rows=1, depth=16)
+    few = idx[:8]                                     # 8 tiles: depth 8
+    out = kernel.runahead_gather(wide, few, block_rows=1, depth=16)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(ref.gather_ref(wide, few)))
+
+
+@pytest.mark.parametrize("name", ["gcn_cora", "grad", "rgb"])
+@pytest.mark.parametrize("window", [8192, None])
+def test_reconfigure_profiles_on_the_card_as_on_the_cpu(card, name, window):
+    """The §3.4 loop with its profile on the card: one cache_grid_scan
+    launch per non-empty stream, and the CPU route's result bit for bit."""
+    tr = KERNELS[name]()
+    streams = sample_streams(tr, presets.RECONFIG, window)
+    before = cache_grid.cache_grid_scan.launches
+    got = reconfigure(tr, presets.RECONFIG, window=window)
+    assert cache_grid.cache_grid_scan.launches - before == sum(
+        a.size > 0 for a, _ in streams)
+    want = reconfigure(tr, presets.RECONFIG, window=window, device="cpu")
+    assert got.h_curves.tobytes() == want.h_curves.tobytes()
+    assert (got.allocations, got.lines, got.profit, got.config) == \
+        (want.allocations, want.lines, want.profit, want.config)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_allocate_on_the_card_as_on_the_cpu(card, seed):
+    rng = np.random.default_rng(seed)
+    streams = {"zipf": rng.zipf(1.3, 20_000) % 5_000,
+               "uniform": rng.integers(0, 50_000, 30_000),
+               "loop": np.tile(np.arange(300), 40),
+               "empty": np.zeros(0, np.int64)}
+    rows = {"zipf": 12_288, "uniform": 256, "loop": 2_048}
+    before = cache_grid.cache_grid_scan.launches
+    got = allocate(streams, budget_tiles=16, row_bytes=rows)
+    assert cache_grid.cache_grid_scan.launches - before == 3
+    assert got == allocate(streams, budget_tiles=16, row_bytes=rows,
+                           device="cpu")
 
 
 @pytest.mark.parametrize("v,d,dtype,s,k,depth", [

@@ -55,7 +55,7 @@ def test_gather_matches_jax_bit_exactly(impl, dtype, n, v, d):
         np.testing.assert_array_equal(_bits(out), _bits(want))
 
 
-@pytest.mark.parametrize("depth", [1, 2, 4])
+@pytest.mark.parametrize("depth", [1, 2, 4, 16])
 def test_gather_runahead_depth_invariance(depth):
     """The runahead window depth (MSHR analogue) does not change results."""
     rng = np.random.default_rng(1)
@@ -65,6 +65,29 @@ def test_gather_runahead_depth_invariance(depth):
     for want in (jax_ops.gather(table, idx, impl="runahead", depth=depth),
                  jax_ref.gather_ref(table, idx)):
         np.testing.assert_array_equal(_bits(out), _bits(want))
+
+
+@pytest.mark.parametrize("depth", [9, 16])
+def test_gather_runahead_at_the_allocators_depths(depth):
+    """Depths past 8 that ``core.runahead.allocate`` plans (up to 16), with
+    more index blocks than the depth so the reference does not clamp it;
+    the card takes the same depths (tests/test_torch_cuda_kernels.py)."""
+    rng = np.random.default_rng(depth)
+    table = jnp.asarray(rng.normal(size=(512, 64)), jnp.bfloat16)
+    idx = jnp.asarray(rng.integers(0, 512, 4 * 40), jnp.int32)
+    out = ops.gather(*_port(table, idx), impl="runahead", block_rows=4,
+                     depth=depth)
+    want = jax_ops.gather(table, idx, impl="runahead", block_rows=4,
+                          depth=depth)
+    np.testing.assert_array_equal(_bits(out), _bits(want))
+
+
+@pytest.mark.parametrize("depth", [0, 17])
+def test_runahead_refuses_depths_the_kernel_does_not_take(depth):
+    """On the CPU as on the card: depth in 1..16."""
+    table, idx = torch.zeros(64, 16), torch.zeros(32, dtype=torch.int32)
+    with pytest.raises(ValueError, match="depth"):
+        ops.gather(table, idx, impl="runahead", depth=depth)
 
 
 @pytest.mark.parametrize("block_rows", [8, 16])

@@ -3,6 +3,7 @@ its imports, the card by default, no silent fallback from a kernel, and
 config data identical to the reference's."""
 import ast
 import dataclasses
+import importlib.util
 import shutil
 import subprocess
 import sys
@@ -14,7 +15,8 @@ import torch
 
 from repro.configs import registry as jax_registry
 from repro_torch.configs import registry
-from repro_torch.core.cgra import cache_grid
+from repro_torch.core.cgra import cache_grid, presets, reconfig, trace
+from repro_torch.core.runahead import allocate
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -29,8 +31,8 @@ from repro_torch.models import api, layers
 from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+    (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -181,6 +183,34 @@ def test_profiler_defaults_to_the_card(monkeypatch):
         cache_grid.hit_series(np.arange(4), grid)
     with pytest.raises(RuntimeError, match="CUDA"):
         cache_grid.miss_counts(np.arange(4), grid)
+
+
+def test_reconfiguration_and_allocator_default_to_the_card(monkeypatch):
+    """With no ``device``, reconfigure, profile_curves and allocate want
+    CUDA and raise without it; nothing is profiled on the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tr = trace.src2dest(n=256)
+    stream = [(np.arange(16) * 4, np.arange(16))]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        reconfig.reconfigure(tr, presets.RECONFIG)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        reconfig.profile_curves(stream, [0, 1], [64], 512)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        allocate({"rows": np.arange(8)})
+    for argv in ([], ["--device", "cuda"]):
+        for example in ("quickstart_torch", "autotune_vmem_torch"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                _example(example).main(argv)
+    assert reconfig.reconfigure(tr, presets.RECONFIG,
+                                device="cpu").allocations
+
+
+def _example(name: str):
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def test_build_flags_target_hopper():
