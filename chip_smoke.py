@@ -23,7 +23,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    ``ops.gather`` (runahead at depths 1, 2, 4, 8 and pipelined) over an
    OGBN-Arxiv-shaped table (169,343 x 128, float32 and bfloat16) for the
    destinations of a seeded power-law graph and for uniform indices, each
-   bit-identical to ``table[idx]``; ``ops.gather_bag`` over the graph's
+   bit-identical to ``table[idx]``, each runahead launch on the route
+   ``gather_runahead.route`` names (counted by route), and then
+   ``runahead_gather`` on both routes (``use="bulk"`` and
+   ``"cp_async"``) bit-identical at every one of those depths;
+   ``ops.gather_bag`` over the graph's
    padded CSR at depths 1, 2, 4 within its stated tolerance of the plain
    version and bit-identical to its kernel-order plain version; and
    ``cache_grid.hit_series`` over the §3.4 profiling grid (132
@@ -33,9 +37,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    window to the stack version in the kernels' order (host), and holding
    the LRU stack property;
 7. time each of those kernels against its plain version and library call
-   (the bag and the profiler by graph replay, eager beside, with the bag's
-   row fetches against the padded bag's and its warps per SM, and each
-   profiler window's longest chain, computed on the host);
+   (the gathers, the bag and the profiler by graph replay, eager beside:
+   the runahead gather on both routes at each depth, and at one block per
+   SM, Fig. 14's sweep, whose time must fall with the depth on both; the
+   bag's row fetches against the padded bag's and its warps per SM, and
+   each profiler window's longest chain, computed on the host);
 8. hold the flash-attention kernel against its plain version at the
    training shape (B 4 x H 12 x S 4,096 x D 128, causal, bf16 and f32) and
    at non-causal, window-96, GQA 12/2, query-offset and ragged-tail
@@ -104,8 +110,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     seed 0; 8 x 4,096 seeded tokens): ``core.runahead.allocate`` on the
     card must equal the CPU route's plan, and ``ops.gather`` at the plan's
     depth must be bit-identical to ``embed[tokens]``, with exactly 2
-    profiler launches and 1 gather; the gather timed by graph replay
-    against ``index_select`` and its bound.
+    profiler launches and 1 gather, on the bulk route; the gather (and
+    its cp_async route, bit-identical too) timed by graph replay in turns
+    with ``index_select``, against its bound.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -567,10 +574,10 @@ def phase_runahead(inp: dict, grid) -> dict:
                 "gather_bag": kernel.gather_bag,
                 "cache_grid_scan": cache_grid.cache_grid_scan}
     errs = dict.fromkeys(counters, 0.0)
-    plain = {}
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
+    kernel.runahead_gather.route_launches = dict.fromkeys(kernel.ROUTES, 0)
     for dtype, table in inp["tables"].items():
         name = str(dtype).split(".")[-1]
         for sname, idx in inp["streams"].items():
@@ -621,13 +628,38 @@ def phase_runahead(inp: dict, grid) -> dict:
     hits = [cache_grid.hit_series(a, grid) for a in inp["windows"]]
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    routes = dict(kernel.runahead_gather.route_launches)
     expect = {"runahead_gather": 2 * 2 * len(GATHER_DEPTHS),
               "pipelined_gather": 2 * 2, "gather_bag": 2 * len(BAG_DEPTHS),
               "cache_grid_scan": N_WINDOWS}
     if launches != expect:
         raise AssertionError(f"runahead path launches {launches} != {expect}")
-    print(f"phase 6: launches on the path: {json.dumps(launches)}",
-          flush=True)
+    expect_routes = dict.fromkeys(kernel.ROUTES, 0)
+    for table in inp["tables"].values():
+        row = table.shape[1] * table.element_size()
+        for depth in GATHER_DEPTHS:
+            expect_routes[kernel.route(row, BLOCK_ROWS, depth)] += 2
+    if routes != expect_routes:
+        raise AssertionError(f"runahead gather routes {routes} != the route "
+                             f"rule's {expect_routes}")
+    print(f"phase 6: launches on the path: {json.dumps(launches)}; "
+          f"runahead_gather by route {json.dumps(routes)}", flush=True)
+    # both routes, whichever the rule takes, at every depth the path ran
+    for dtype, table in inp["tables"].items():
+        for sname, idx in inp["streams"].items():
+            want = ref.gather_ref(table, idx)
+            for depth in GATHER_DEPTHS:
+                for use in kernel.ROUTES:
+                    out = kernel.runahead_gather(table, idx,
+                                                 block_rows=BLOCK_ROWS,
+                                                 depth=depth, use=use)
+                    if not bit_equal(out, want):
+                        raise AssertionError(
+                            f"runahead gather {dtype} {sname} depth {depth} "
+                            f"route {use}: not bit-identical to table[idx]")
+    print(f"phase 6: runahead_gather on routes {kernel.ROUTES} at depths "
+          f"{GATHER_DEPTHS}, f32 and bf16, both streams: bit-identical to "
+          f"table[idx]", flush=True)
 
     t_len, n_cfg = len(inp["windows"][0]), len(grid)
     misses = []
@@ -671,26 +703,41 @@ def phase_runahead(inp: dict, grid) -> dict:
           f"windows; misses at 8 ways (lines 16, 32, 64, 128) per window "
           f"{[m[8].tolist() for m in misses]}", flush=True)
     return dict(launches=launches, errs=errs, grid_plain_ms=plain_ms,
-                grid_misses=misses)
+                grid_misses=misses, routes=routes)
 
 
 def mshr_sweep(table, idx, flush) -> dict:
     """The runahead gather at one block per SM, where the ring is the only
     source of rows in flight (SMs x depth x block_rows): the paper's
-    runahead-vs-MSHR sweep (Fig. 14) on the card.  Outputs are checked."""
+    runahead-vs-MSHR sweep (Fig. 14) on the card, on each route, by graph
+    replay with eager events beside.  Outputs are checked, and each
+    route's time must fall as the depth grows: no depth more than 2%
+    (replay noise) above the one before, the deepest below the first."""
     from repro_torch.kernels.gather_runahead import gather_runahead as kernel
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     want = table[idx.long()]
     out = {}
-    for depth in GATHER_DEPTHS:
-        def run():
-            return kernel.runahead_gather(table, idx, block_rows=BLOCK_ROWS,
-                                          depth=depth, grid_blocks=sms)
-        if not bit_equal(run(), want):
-            raise AssertionError(f"runahead gather at {sms} blocks, depth "
-                                 f"{depth}: not bit-identical to table[idx]")
-        out[depth] = round(time_ms(run, flush), 4)
+    for use in kernel.ROUTES:
+        graph, eager = {}, {}
+        for depth in GATHER_DEPTHS:
+            def run():
+                return kernel.runahead_gather(table, idx,
+                                              block_rows=BLOCK_ROWS,
+                                              depth=depth, grid_blocks=sms,
+                                              use=use)
+            if not bit_equal(run(), want):
+                raise AssertionError(f"runahead gather at {sms} blocks, "
+                                     f"depth {depth}, route {use}: not "
+                                     f"bit-identical to table[idx]")
+            graph[depth] = round(graph_ms(run, flush), 4)
+            eager[depth] = round(time_ms(run, flush), 4)
+        ms = [graph[d] for d in GATHER_DEPTHS]
+        if any(b > 1.02 * a for a, b in zip(ms, ms[1:])) or ms[-1] >= ms[0]:
+            raise AssertionError(f"runahead gather at {sms} blocks, route "
+                                 f"{use}: ms by depth {graph} does not fall "
+                                 f"as the depth grows")
+        out[use] = dict(graph=graph, eager=eager)
     return out
 
 
@@ -723,32 +770,56 @@ def phase_runahead_times(inp: dict, grid, stats: dict,
             n_bytes = distinct * d * elt + n * 4 + n * d * elt
             bound = n_bytes / MEM_BYTES_PER_S * 1e3
             plain_ms = time_ms(lambda: ref.gather_ref(table, idx), flush)
-            library_ms = time_ms(lambda: torch.index_select(table, 0, idx),
+            library_ms = graph_ms(lambda: torch.index_select(table, 0, idx),
+                                  flush)
+            library_eager = time_ms(
+                lambda: torch.index_select(table, 0, idx), flush)
+            # each route's ms by depth, by graph replay and eager events
+            route_ms, route_eager = {}, {}
+            for use in kernel.ROUTES:
+                route_ms[use], route_eager[use] = {}, {}
+                for depth in GATHER_DEPTHS:
+                    def run():
+                        return kernel.runahead_gather(
+                            table, idx, block_rows=BLOCK_ROWS, depth=depth,
+                            use=use)
+                    route_ms[use][depth] = round(graph_ms(run, flush), 4)
+                    route_eager[use][depth] = round(time_ms(run, flush), 4)
+            row = d * elt
+            rule = {depth: kernel.route(row, BLOCK_ROWS, depth)
+                    for depth in GATHER_DEPTHS}
+            pipe_ms = graph_ms(lambda: kernel.pipelined_gather(table, idx),
+                               flush)
+            pipe_eager = time_ms(lambda: kernel.pipelined_gather(table, idx),
                                  flush)
-            depth_ms = {depth: time_ms(
-                lambda: kernel.runahead_gather(table, idx,
-                                               block_rows=BLOCK_ROWS,
-                                               depth=depth), flush)
-                for depth in GATHER_DEPTHS}
-            pipe_ms = time_ms(lambda: kernel.pipelined_gather(table, idx),
-                              flush)
             if dtype == torch.float32:
-                capped_ms = mshr_sweep(table, idx, flush)
+                capped = mshr_sweep(table, idx, flush)
                 print(f"phase 7: gather {name} {sname} at one block per SM "
-                      f"({BLOCK_ROWS} rows a tile): runahead ms by depth "
-                      f"{json.dumps(capped_ms)}; {card}", flush=True)
+                      f"({BLOCK_ROWS} rows a tile): runahead ms by route and "
+                      f"depth (graph replay) "
+                      f"{json.dumps({u: c['graph'] for u, c in capped.items()})}"
+                      f" (eager "
+                      f"{json.dumps({u: c['eager'] for u, c in capped.items()})}"
+                      f"), falling with depth on both; {card}", flush=True)
             print(f"phase 7: gather {name} {sname} n={n} distinct rows "
-                  f"{distinct}: runahead ms by depth "
-                  f"{json.dumps({k: round(v, 4) for k, v in depth_ms.items()})}"
-                  f" pipelined_ms={pipe_ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={library_ms:.4f} (index_select) "
+                  f"{distinct}: runahead ms by route and depth (graph replay)"
+                  f" {json.dumps(route_ms)} (eager {json.dumps(route_eager)});"
+                  f" the route rule's by depth {json.dumps(rule)}; "
+                  f"pipelined_ms={pipe_ms:.4f} (eager {pipe_eager:.4f}) "
+                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                  f"(index_select, graph replay; eager {library_eager:.4f}) "
                   f"bound_ms={bound:.4f} ({n_bytes} bytes) bytes-bound; "
                   f"{card}", flush=True)
             if dtype == torch.float32 and sname == "graph":
                 common = dict(plain_ms=plain_ms, bound_ms=bound,
                               bound_by="bytes", library_ms=library_ms)
-                entries["runahead_gather"] = dict(ms=depth_ms[2], **common)
-                entries["pipelined_gather"] = dict(ms=pipe_ms, **common)
+                entries["runahead_gather"] = dict(
+                    ms=route_ms[rule[2]][2], eager_ms=route_eager[rule[2]][2],
+                    kernel_route=rule[2],
+                    route_ms={u: m[2] for u, m in route_ms.items()},
+                    route_ms_by_depth=route_ms, mshr_sweep=capped, **common)
+                entries["pipelined_gather"] = dict(
+                    ms=pipe_ms, eager_ms=pipe_eager, **common)
 
         idx, w = inp["bag_idx"], inp["bag_w"]
         s, k = idx.shape
@@ -2044,6 +2115,7 @@ def phase_allocator(flush: torch.Tensor) -> dict:
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
+    kernel.runahead_gather.route_launches = dict.fromkeys(kernel.ROUTES, 0)
     t0 = time.perf_counter()
     plan = allocate(streams, budget_tiles=ALLOC_BUDGET, row_bytes=row_bytes)
     torch.cuda.synchronize()
@@ -2055,9 +2127,13 @@ def phase_allocator(flush: torch.Tensor) -> dict:
                      depth=plan.depth)
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
+    routes = dict(kernel.runahead_gather.route_launches)
     if launches != {"cache_grid_scan": 2, "runahead_gather": 1}:
         raise AssertionError(f"allocator path launches {launches}; want 2 "
                              f"profiles and 1 gather")
+    if routes["bulk"] != 1:
+        raise AssertionError(f"the plan's gather took routes {routes}; want "
+                             f"the bulk route")
     t0 = time.perf_counter()
     host = allocate(streams, budget_tiles=ALLOC_BUDGET, row_bytes=row_bytes,
                     device="cpu")
@@ -2081,33 +2157,49 @@ def phase_allocator(flush: torch.Tensor) -> dict:
                       f"hit rate {p.hit_rate:.6f}" for p in plan.streams)
           + f", depth {plan.depth}, profit {plan.total_profit:.6f}; allocate "
           f"wall {card_s * 1e3:.1f} ms on the card vs {host_s * 1e3:.1f} ms "
-          f"on the CPU route; launches {json.dumps(launches)}; gather at "
-          f"depth {plan.depth}, block_rows {block_rows} bit-identical to "
-          f"embed[tokens]", flush=True)
+          f"on the CPU route; launches {json.dumps(launches)}, the gather "
+          f"by route {json.dumps(routes)}; gather at depth {plan.depth}, "
+          f"block_rows {block_rows} bit-identical to embed[tokens]",
+          flush=True)
 
-    def run():
-        return kernel.runahead_gather(embed, flat, block_rows=block_rows,
-                                      depth=plan.depth)
+    def run(use=None, rows=block_rows, depth=plan.depth):
+        return kernel.runahead_gather(embed, flat, block_rows=rows,
+                                      depth=depth, use=use)
 
-    ms, eager_ms = graph_ms(run, flush), time_ms(run, flush)
-    depth2_ms = graph_ms(lambda: kernel.runahead_gather(
-        embed, flat, block_rows=BLOCK_ROWS, depth=2), flush)
-    library_ms = graph_ms(lambda: torch.index_select(embed, 0, flat), flush)
+    if not bit_equal(run("cp_async"), want):
+        raise AssertionError(f"runahead gather at depth {plan.depth} on the "
+                             f"cp_async route: not bit-identical")
+    # in turns: the library call, the plan's route, the other, and back
+    library = [graph_ms(lambda: torch.index_select(embed, 0, flat), flush)]
+    ms = [graph_ms(run, flush)]
+    cp_ms = [graph_ms(lambda: run("cp_async"), flush) for _ in range(2)]
+    ms.append(graph_ms(run, flush))
+    library.append(graph_ms(lambda: torch.index_select(embed, 0, flat),
+                            flush))
+    ms, cp_ms = statistics.mean(ms), statistics.mean(cp_ms)
+    library_ms = statistics.mean(library)
+    eager_ms = time_ms(run, flush)
+    depth2_ms = graph_ms(lambda: run(None, BLOCK_ROWS, 2), flush)
     plain_ms = time_ms(lambda: ref.gather_ref(embed, flat), flush)
     distinct = torch.unique(flat).numel()
     n_bytes = distinct * row + n * 4 + n * row
     bound = n_bytes / MEM_BYTES_PER_S * 1e3
     print(f"phase 15: gather {n} rows of {row} B at the plan's depth "
-          f"{plan.depth} (block_rows {block_rows}): ms={ms:.4f} (graph "
-          f"replay; eager {eager_ms:.4f}); depth 2 x {BLOCK_ROWS} rows "
+          f"{plan.depth} (block_rows {block_rows}, route bulk): ms={ms:.4f} "
+          f"(graph replay, mean of two turns; eager {eager_ms:.4f}), "
+          f"{bound / ms:.1%} of its bound, {ms / library_ms:.3f}x "
+          f"index_select; the cp_async route {cp_ms:.4f}; depth 2 x "
+          f"{BLOCK_ROWS} rows (route {kernel.route(row, BLOCK_ROWS, 2)}) "
           f"{depth2_ms:.4f}; plain_ms={plain_ms:.4f} library_ms="
-          f"{library_ms:.4f} (index_select, graph replay) bound_ms="
-          f"{bound:.4f} ({n_bytes} bytes: {distinct} distinct rows read, "
-          f"{n} written) bytes-bound; {card_line()}", flush=True)
-    return dict(launches=launches, err=err, depth=plan.depth,
-                block_rows=block_rows, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by="bytes", library_ms=library_ms,
-                depth2_ms=depth2_ms)
+          f"{library_ms:.4f} (index_select, graph replay, mean of "
+          f"{[round(t, 4) for t in library]}) bound_ms={bound:.4f} "
+          f"({n_bytes} bytes: {distinct} distinct rows read, {n} written) "
+          f"bytes-bound; {card_line()}", flush=True)
+    return dict(launches=launches, routes=routes, err=err, depth=plan.depth,
+                block_rows=block_rows, ms=ms, eager_ms=eager_ms,
+                kernel_route="bulk", route_ms={"bulk": ms, "cp_async": cp_ms},
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                library_ms=library_ms, depth2_ms=depth2_ms)
 
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
@@ -2232,7 +2324,8 @@ def main() -> int:
     later = {"runahead_gather": (alloc["launches"]["runahead_gather"],
                                  alloc["err"], "allocator_gather", {
                                      k: alloc[k] for k in (
-                                         "ms", "plain_ms", "bound_ms",
+                                         "ms", "eager_ms", "kernel_route",
+                                         "route_ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms", "depth",
                                          "block_rows", "depth2_ms")}),
              "cache_grid_scan": (reconf["launches"]
@@ -2247,6 +2340,9 @@ def main() -> int:
             else GATHER_SOURCE,
             "replaces": where, "launches": stats["launches"][name],
             "max_abs_err": stats["errs"][name], **times[name]}
+        if name == "runahead_gather":
+            entry["route_launches"] = {"6": stats["routes"],
+                                       "15": alloc["routes"]}
         if name in later:
             n15, err15, key, extra = later[name]
             entry["launches_by_phase"] = {"6": entry["launches"], "15": n15}

@@ -55,7 +55,7 @@ from repro_torch.kernels.gather_runahead import ref  # noqa: E402
 
 DEV = ROOT / "build" / "dev"
 # the kernel source the variants below are written against
-SOURCE_SHA256 = "e930f37f196ceac2a92574cf769a6e04fc2589f77512699c6966d328f8db8961"
+SOURCE_SHA256 = "567b80387766ec42341fc8ba76b2a9f5689130af6484135552377286a8efb0d4"
 COPY = "cp_async16(dst + c * 16, src + c * 16);"
 REPEAT = "lane > 0 && my_w == 0.f && prev_w == 0.f && my_slot == prev_slot"
 PASSES = ("  if (chunks <= 32)\n", "  if (chunks <= 64)\n")

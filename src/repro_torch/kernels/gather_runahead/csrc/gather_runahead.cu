@@ -3,9 +3,10 @@
 //
 // Replaces three Pallas TPU kernels of src/repro/kernels/gather_runahead/
 // gather_runahead.py:
-//   * runahead_gather_kernel  <- _runahead_kernel (:34), pallas_call at :91
-//     (runahead_gather): out[i] = table[idx[i]], `depth` index blocks of
-//     `block_rows` row copies in flight (the paper's MSHR window, §3.4.1);
+//   * runahead_bulk_kernel and runahead_cp_async_kernel <- _runahead_kernel
+//     (:34), pallas_call at :91 (runahead_gather): out[i] = table[idx[i]],
+//     `depth` index blocks of `block_rows` row copies in flight (the
+//     paper's MSHR window, §3.4.1);
 //   * pipelined_gather_kernel <- _pipelined_kernel (:102), pallas_call at
 //     :117 (pipelined_gather): the same gather, one row per grid step;
 //   * gather_bag_kernel       <- _bag_kernel (:128), pallas_call at :177
@@ -18,19 +19,52 @@
 // bag does 2 flops per fetched element, under 1 per byte of an f32 row,
 // far below the 20 flops per byte (67 TFLOP/s f32 over 3.35 TB/s) where
 // arithmetic would bound it.  What limits the gathers is how many
-// independent row reads are in flight: each read is a dependent load
-// (index, then row), and device memory needs about (bandwidth x latency)
-// bytes in flight to run at its rate.  Design against that:
-//   * the runahead gather keeps, per block, a `depth`-stage ring of
-//     [block_rows, row] tiles in shared memory, filled by cp.async (16 B a
-//     lane, one warp per row); `depth` is 1..16, every depth the
-//     Algorithm-1 allocator (core/runahead/vmem_allocator.py) plans.
-//     Tile k is written out, then tile k + depth is issued into its
-//     stage: depth * block_rows rows in flight per block, the TPU
-//     kernel's window of DMAs, with no registers held;
-//   * the baseline gives each row to one warp that loads it into registers
-//     and stores it, with no ring: its reads in flight are what the warp
-//     scheduler happens to overlap.
+// independent row reads are in flight, and the instructions it takes to
+// keep them in flight: each read is a dependent load (index, then row),
+// and device memory needs about (bandwidth x latency) bytes in flight to
+// run at its rate.  The baseline gives each row to one warp that loads it
+// into registers and stores it, with no ring: its reads in flight are
+// what the warp scheduler happens to overlap.
+//
+// The runahead gather keeps, per block, a ring of `depth` stages (1..16,
+// every depth the Algorithm-1 allocator in core/runahead/vmem_allocator.py
+// plans) of [block_rows, row] tiles in shared memory: tile k is written
+// out, then its stage takes tile k + depth, so a block has depth x
+// block_rows rows in flight (the TPU kernel's window of DMAs), and with
+// one block per SM the card has SMs x depth x block_rows (Fig. 14's MSHR
+// count).  Its first design filled the ring with 16-byte cp.async, one
+// warp of eight per row, and copied each tile out through registers.  At
+// the allocator's plan for dbrx-132b's embedding (32,768 rows of 12,288 B,
+// depth 15, one-row tiles, since 15 larger tiles do not fit 227 KB) it
+// took 0.3113 ms against index_select's 0.2818 and a bytes bound of
+// 0.2228 (H100 SXM, 700 W): 7 of 8 warps had no row, and the one that did
+// issued 768 cp.async per row, then waited and copied 12 KB out (24 int4
+// loads and stores a lane) before it could issue the next tile.  Memory
+// had far more than enough in flight (24 MB over the card); one warp's
+// instruction stream set the pace.  So the kernel has two routes, chosen
+// by shape in the wrapper (gather_runahead.py, route()):
+//   * "bulk" (TMA), where the ring and one 8-byte barrier a stage fit a
+//     block's shared memory and each TMA operation moves enough bytes
+//     over the blocks an SM holds: one warp a block; its lanes issue one
+//     bulk copy (cp.async.bulk) per row into the tile's stage, counted on
+//     the stage's mbarrier (armed for the tile's bytes), and when the barrier
+//     completes one lane writes the whole tile out with one bulk store
+//     (cp.async.bulk.global.shared::cta), whose group it waits on only
+//     (.read) before the stage takes its next tile, keeping one store in
+//     flight.  No register or instruction touches a row's bytes.  Rows
+//     are read with L2 priority evict_last and tiles written evict_first,
+//     so a row named again may still be in L2 (faster at every shape
+//     timed);
+//   * "cp_async", the rings that leave no room for those barriers, and
+//     deep rings of small rows, where the few one-warp bulk blocks an SM
+//     holds wait on their operations: the first design, warp w copying
+//     rows w, w + 8, ... of each tile with 16-byte cp.async and later
+//     copying the same chunks out through registers.  Spreading a one-row
+//     tile's chunks over all eight warps instead was slower at the rings
+//     that leave no room for the barriers, so it was dropped.
+// With grid_blocks = SMs both routes keep the contract above; the bulk
+// route, one warp an SM then, is the slower there (chip_smoke.py phase 7
+// times both).
 // The ring only runs ahead if the index stream does: the TPU kernel has
 // its indices in SMEM before the grid starts (scalar prefetch), while a
 // load of each index from device memory at issue time would put one
@@ -38,7 +72,9 @@
 // runahead gather reads its indices 32 at a time, one batch ahead
 // (Lookahead), and the bag reads each batch of 32 entries (indices and
 // weights) one batch ahead of the batch it issues.  The gathers' output
-// is a byte-exact copy at every depth.
+// is a byte-exact copy at every depth, on both routes.  Ring stages are
+// walked with a running counter (no k % depth), so that no instantiation
+// spills, and the cp_async route is held to one block an SM's registers.
 //
 // The bag's bytes bound counts the indices, the weights, each distinct
 // table row once and the output.  What held it far above that bound was
@@ -71,9 +107,12 @@
 // leaves the sum bit for bit as adding it would; every other entry is
 // added in k order, so the output, and the NaN of a 0 * inf, are those of
 // adding every entry.
-// Every thread waits for its own copies (cp.async.wait_group) and reads
-// back only the 16-byte chunks it copied itself, so no ring needs a
-// barrier.  Rows must be a multiple of 16 bytes and 16-byte aligned, and
+// In the cp.async rings (the cp_async route and the bag) every thread
+// waits for its own copies (cp.async.wait_group) and reads back only the
+// 16-byte chunks it copied itself, so they need no barrier; in the bulk
+// route the whole warp waits on the barriers and the storing lane on its
+// own bulk stores.
+// Rows must be a multiple of 16 bytes and 16-byte aligned, and
 // a bag row at most 2048 bytes (the wrapper checks); indices must lie in
 // [0, V) (the contract, not checked here).
 
@@ -83,8 +122,9 @@
 
 namespace {
 
-constexpr int kGatherWarps = 8;  // warps per block of the two row gathers
+constexpr int kGatherWarps = 8;  // warps a block: cp_async route, pipelined
 constexpr int kMaxRunaheadDepth = 16;  // the runahead gather's ring stages
+constexpr int kRouteCpAsync = 0, kRouteBulk = 1;  // runahead_gather_launch
 constexpr int kMaxBagDepth = 8;
 constexpr int kBagWarps = 4;     // most warps a block of the bag holds
 constexpr int kBagFlight = 8;    // most batches a warp of the bag has in flight
@@ -123,12 +163,84 @@ __device__ __forceinline__ int owned_count(int n_items) {
   return (n_items - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
 }
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Wait until the phase of the given parity has completed.  A phase that
+// never completes is a fault of the kernel: trap after 2^24 polls (a tenth
+// of a second at least) rather than hold the card forever.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0, polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (++polls == (1u << 24)) __trap();
+  } while (!done);
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device
+// memory into this block's shared memory by the TMA, counted on bar.  The
+// rows stay in L2 ahead of other lines (evict_last): a row that the index
+// stream names again may still be there.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 pol;\n"
+      "createpolicy.fractional.L2::evict_last.b64 pol, 1.0;\n"
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], pol;\n}\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+// `bytes` from shared memory out to device memory by the TMA, in this
+// thread's current bulk group; the output leaves L2 first (evict_first),
+// since nothing here reads it again.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 pol;\n"
+      "createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\n"
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint "
+      "[%0], [%1], %2, pol;\n}\n" ::"l"(dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's bulk groups are still reading shared
+// memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // The row indices a warp reads in order, read ahead: lane l holds index
 // base + l of the current batch of 32 and the next batch is already in
 // flight, so a read waits on device memory once per 32 indices at most,
 // not once per index.  This is the TPU kernel's scalar prefetch of the
-// index stream.  `at(q)` points at index q < n; every lane calls get()
-// with the same non-decreasing q.
+// index stream.  `at(q)` points at index q < n.  Every lane calls get()
+// with the same non-decreasing q; or advance() with the same
+// non-decreasing q, the warp's lowest, and then peek() with its own q in
+// [that q, that q + 32).
 template <typename At>
 struct Lookahead {
   At at;
@@ -143,12 +255,21 @@ struct Lookahead {
     const long long q = first + (threadIdx.x & 31);
     return q < n ? *at(q) : 0;
   }
-  __device__ int32_t get(long long q) {
+  __device__ void advance(long long q) {
     while (q >= base + 32) {  // the same on every lane
       base += 32;
       cur = next;
       next = load(base + 32);
     }
+  }
+  __device__ int32_t peek(long long q) const {
+    const int d = static_cast<int>(q - base);  // in [0, 64)
+    const int32_t a = __shfl_sync(0xffffffffu, cur, d & 31);
+    const int32_t b = __shfl_sync(0xffffffffu, next, d & 31);
+    return d < 32 ? a : b;
+  }
+  __device__ int32_t get(long long q) {
+    advance(q);
     return __shfl_sync(0xffffffffu, cur, static_cast<int>(q - base));
   }
 };
@@ -157,36 +278,121 @@ struct Lookahead {
 // runahead gather
 // ---------------------------------------------------------------------------
 
+// Route "bulk": one warp a block.  Lane 0 arms stage s's barrier for a
+// tile's bytes, then each lane issues one bulk copy per row of its own
+// into it; the whole warp reads the indices (Lookahead) and waits on the
+// barriers, so it stays converged.  When tile k has landed, lane 0
+// writes it out with one bulk store; then the stage of tile k - 1, whose
+// store has read it (at most the newest group is still reading), takes
+// tile k - 1 + DEPTH.  At DEPTH 1 the one stage waits for its own store.
+// The block's k-th tile is tile blockIdx.x + k * gridDim.x of the output.
 template <int DEPTH>
-__global__ void __launch_bounds__(kGatherWarps * 32)
-    runahead_gather_kernel(const unsigned char* __restrict__ table,
-                           const int32_t* __restrict__ idx,
-                           unsigned char* __restrict__ out, int n_tiles,
-                           int block_rows, int row_bytes) {
+__global__ void __launch_bounds__(32)
+    runahead_bulk_kernel(const unsigned char* __restrict__ table,
+                         const int32_t* __restrict__ idx,
+                         unsigned char* __restrict__ out, int n_tiles,
+                         int block_rows, int row_bytes) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const uint32_t tile_bytes = static_cast<uint32_t>(block_rows) * row_bytes;
+  uint64_t* const full =
+      reinterpret_cast<uint64_t*>(smem + DEPTH * tile_bytes);
+  const int lane = threadIdx.x;
+  const bool leader = lane == 0;
+  const int mine = owned_count(n_tiles);
+  if (leader) {
+    for (int s = 0; s < DEPTH; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncwarp();
+  Lookahead rows(
+      [=](long long q) {
+        const long long k = q / block_rows;
+        return idx + (blockIdx.x + k * gridDim.x) * block_rows +
+               (q - k * block_rows);
+      },
+      static_cast<long long>(mine) * block_rows);
+
+  // tile k into stage s: the barrier armed first, then lane l copies rows
+  // l, l + 32, ... of the tile
+  auto issue = [&](int k, int s) {
+    unsigned char* stage = smem + s * tile_bytes;
+    if (leader) mbar_expect_tx(&full[s], tile_bytes);
+    __syncwarp();
+    const long long q = static_cast<long long>(k) * block_rows;
+    for (int r0 = 0; r0 < block_rows; r0 += 32) {
+      const int r = r0 + lane;
+      rows.advance(q + r0);
+      const int64_t row = rows.peek(q + min(r, block_rows - 1));
+      if (r < block_rows)
+        bulk_load(stage + r * row_bytes, table + row * row_bytes, row_bytes,
+                  &full[s]);
+    }
+  };
+
+  // stores left reading their stages when a stage is refilled: the
+  // newest one, except with a single stage
+  constexpr int kLag = DEPTH > 1 ? 1 : 0;
+  const int first = min(DEPTH, mine);
+#pragma unroll 1
+  for (int k = 0; k < first; ++k) issue(k, k);
+  int s = 0, refill = DEPTH - kLag;  // stages of tiles k and k - kLag
+  uint32_t parity = 0;
+#pragma unroll 1
+  for (int k = 0; k < mine; ++k) {
+    mbar_wait(&full[s], parity);  // tile k has landed in stage s
+    if (leader) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      const size_t tile = blockIdx.x + static_cast<size_t>(k) * gridDim.x;
+      bulk_store(out + tile * tile_bytes, smem + s * tile_bytes, tile_bytes);
+      bulk_commit();
+    }
+    if (refill == DEPTH) refill = 0;
+    if (k >= kLag && k - kLag + DEPTH < mine) {
+      if (leader) bulk_wait_read<kLag>();  // tile k - kLag's store has read
+      issue(k - kLag + DEPTH, refill);
+    }
+    ++refill;
+    if (++s == DEPTH) s = 0, parity ^= 1;
+  }
+  if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Route "cp_async": eight warps a block; warp w copies rows w, w + 8, ...
+// of each tile into the ring with 16-byte cp.async, lane l chunks l, l +
+// 32, ... of a row, and later copies the same chunks out through
+// registers, after its own wait_group.  Tile k is drained from its stage,
+// then the stage takes tile k + DEPTH.  Its rings fill most of an SM's
+// shared memory, so its launch bounds ask for one block an SM: without
+// that minimum ptxas held it to 64 registers a thread and spilled.
+template <int DEPTH>
+__global__ void __launch_bounds__(kGatherWarps * 32, 1)
+    runahead_cp_async_kernel(const unsigned char* __restrict__ table,
+                             const int32_t* __restrict__ idx,
+                             unsigned char* __restrict__ out, int n_tiles,
+                             int block_rows, int row_bytes) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int chunks = row_bytes >> 4;
   const size_t tile_bytes = static_cast<size_t>(block_rows) * row_bytes;
   const int mine = owned_count(n_tiles);
-  // this warp copies rows warp, warp + kGatherWarps, ... of every tile:
-  // per_tile of them; its q-th row index is row q % per_tile of the block's
-  // (q / per_tile)-th tile
+  // this warp copies per_tile rows of every tile; its q-th row index is
+  // row warp + (q % per_tile) * 8 of the block's (q / per_tile)-th tile
   const int per_tile = max(0, (block_rows - warp + kGatherWarps - 1) /
                                   kGatherWarps);
   Lookahead rows(
       [=](long long q) {
-        const long long k = q / per_tile, r = q - k * per_tile;
+        const long long k = q / per_tile, i = q - k * per_tile;
         return idx + (blockIdx.x + k * gridDim.x) * block_rows + warp +
-               r * kGatherWarps;
+               i * kGatherWarps;
       },
       static_cast<long long>(mine) * per_tile);
 
-  // Issue the row copies of this block's k-th tile into stage k % DEPTH.
-  // Past the last tile an empty group is committed, so that wait_group
-  // always counts DEPTH groups behind the current one.
-  auto issue = [&](int k) {
+  // Issue this warp's copies of the block's k-th tile into `stage`.  Past
+  // the last tile an empty group is committed, so that wait_group always
+  // counts DEPTH groups behind the current one.
+  auto issue = [&](int k, unsigned char* stage) {
     if (k < mine) {
-      unsigned char* stage = smem + (k % DEPTH) * tile_bytes;
       for (int i = 0; i < per_tile; ++i) {
         const int r = warp + i * kGatherWarps;
         const int64_t row =
@@ -200,11 +406,14 @@ __global__ void __launch_bounds__(kGatherWarps * 32)
     cp_async_commit();
   };
 
-  for (int k = 0; k < DEPTH; ++k) issue(k);
+#pragma unroll 1
+  for (int k = 0; k < DEPTH; ++k) issue(k, smem + k * tile_bytes);
+  int s = 0;
+#pragma unroll 1
   for (int k = 0; k < mine; ++k) {
     cp_async_wait<DEPTH - 1>();  // this thread's copies of tile k landed
     const size_t tile = blockIdx.x + static_cast<size_t>(k) * gridDim.x;
-    const unsigned char* stage = smem + (k % DEPTH) * tile_bytes;
+    unsigned char* stage = smem + s * tile_bytes;
     unsigned char* dst = out + tile * tile_bytes;
     for (int r = warp; r < block_rows; r += kGatherWarps) {
       const size_t off = static_cast<size_t>(r) * row_bytes;
@@ -212,7 +421,8 @@ __global__ void __launch_bounds__(kGatherWarps * 32)
         *reinterpret_cast<int4*>(dst + off + c * 16) =
             *reinterpret_cast<const int4*>(stage + off + c * 16);
     }
-    issue(k + DEPTH);  // the stage just drained takes tile k + DEPTH
+    issue(k + DEPTH, stage);  // the stage just drained takes tile k + DEPTH
+    if (++s == DEPTH) s = 0;
   }
   cp_async_wait<0>();
 }
@@ -492,13 +702,13 @@ int persistent_grid(Kernel kernel, int threads, size_t smem, int items,
   return 0;
 }
 
-template <int DEPTH>
-int launch_runahead(const void* table, const void* idx, void* out,
-                    int n_tiles, int block_rows, int row_bytes,
-                    int grid_blocks, cudaStream_t stream) {
-  auto kernel = runahead_gather_kernel<DEPTH>;
-  const int threads = kGatherWarps * 32;
-  const size_t smem = static_cast<size_t>(DEPTH) * block_rows * row_bytes;
+// Launch a ring kernel with `smem` bytes of shared memory a block over a
+// grid that fills the card, or of grid_blocks blocks if that is fewer.
+template <typename Kernel>
+int launch_ring(Kernel kernel, int threads, size_t smem, const void* table,
+                const void* idx, void* out, int n_tiles, int block_rows,
+                int row_bytes, int grid_blocks, cudaStream_t stream) {
+  if (smem > kMaxSmemBytes) return static_cast<int>(cudaErrorInvalidValue);
   int grid = 0;
   const int e =
       persistent_grid(kernel, threads, smem, n_tiles, grid_blocks, &grid);
@@ -508,6 +718,21 @@ int launch_runahead(const void* table, const void* idx, void* out,
       static_cast<const int32_t*>(idx), static_cast<unsigned char*>(out),
       n_tiles, block_rows, row_bytes);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int DEPTH>
+int launch_runahead(int route, const void* table, const void* idx, void* out,
+                    int n_tiles, int block_rows, int row_bytes,
+                    int grid_blocks, cudaStream_t stream) {
+  const size_t ring = static_cast<size_t>(DEPTH) * block_rows * row_bytes;
+  if (route == kRouteBulk)  // the ring, then one barrier a stage
+    return launch_ring(runahead_bulk_kernel<DEPTH>, 32,
+                       ring + DEPTH * sizeof(uint64_t), table, idx, out,
+                       n_tiles, block_rows, row_bytes, grid_blocks, stream);
+  if (route != kRouteCpAsync) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_ring(runahead_cp_async_kernel<DEPTH>, kGatherWarps * 32,
+                     ring, table, idx, out, n_tiles, block_rows, row_bytes,
+                     grid_blocks, stream);
 }
 
 // The bag with up to FLIGHT batches in flight a warp and rows of at most
@@ -597,17 +822,20 @@ extern "C" {
 
 // Every function returns a cudaError_t: 0 = launched.
 
-// n_tiles = n / block_rows index blocks; depth in 1..16 (the wrapper
-// refuses a ring over shared memory); grid_blocks > 0
-// caps the number of blocks (0 = fill the card at the kernel's occupancy).
-int runahead_gather_launch(const void* table, const void* idx, void* out,
-                           int n_tiles, int block_rows, int row_bytes,
-                           int depth, int grid_blocks, void* stream) {
+// route: 0 = cp_async, 1 = bulk (TMA; the ring and a barrier a stage
+// must fit a block's shared memory); n_tiles = n / block_rows index
+// blocks; depth in 1..16 (the wrapper refuses a ring over shared memory);
+// grid_blocks > 0 caps the number of blocks (0 = fill the card at the
+// kernel's occupancy).
+int runahead_gather_launch(int route, const void* table, const void* idx,
+                           void* out, int n_tiles, int block_rows,
+                           int row_bytes, int depth, int grid_blocks,
+                           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = n_tiles, b = block_rows, r = row_bytes, g = grid_blocks;
 #define RUNAHEAD_CASE(D) \
   case D:                 \
-    return launch_runahead<D>(table, idx, out, n, b, r, g, s);
+    return launch_runahead<D>(route, table, idx, out, n, b, r, g, s);
   switch (depth) {
     RUNAHEAD_CASE(1) RUNAHEAD_CASE(2) RUNAHEAD_CASE(3) RUNAHEAD_CASE(4)
     RUNAHEAD_CASE(5) RUNAHEAD_CASE(6) RUNAHEAD_CASE(7) RUNAHEAD_CASE(8)

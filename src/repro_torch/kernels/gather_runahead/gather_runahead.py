@@ -4,9 +4,11 @@ Each wrapper checks its operands, allocates the output, launches on
 PyTorch's current stream without synchronising, and raises if the launch
 is refused.  The library is built at first use
 (:mod:`repro_torch.kernels._build`).  Each wrapper's ``launches``
-attribute counts its launches and nothing else.  The contract on indices
-is ``0 <= idx < V``, as in the JAX package; it is not checked, since that
-would cost a synchronisation with the card.
+attribute counts its launches and nothing else;
+``runahead_gather.route_launches`` counts the runahead gather's launches
+by route (:func:`route`).  The contract on indices is ``0 <= idx < V``,
+as in the JAX package; it is not checked, since that would cost a
+synchronisation with the card.
 """
 from __future__ import annotations
 
@@ -21,21 +23,64 @@ MAX_RUNAHEAD_DEPTH = 16          # runahead_gather is instantiated for 1..16
 MAX_BAG_DEPTH = 8                # gather_bag for 1..8
 MAX_SMEM_BYTES = 232_448         # dynamic shared memory a Hopper block may use
 MAX_BAG_ROW_BYTES = 2048         # the bag's accumulator: 4 x 32 lanes x 16 B
+BARRIER_BYTES = 8                # the bulk route's mbarrier, one a ring stage
+ROUTES = ("cp_async", "bulk")    # runahead_gather_launch's route 0, 1
+SM_SMEM_BYTES = 233_472          # shared memory an SM holds: 228 KB
+BLOCK_RESERVED_BYTES = 1024      # of which the runtime keeps 1 KB a block
+MAX_BLOCKS_PER_SM = 32
+# the fewest bytes a TMA operation of the bulk route must move, over the
+# blocks an SM holds, for it to beat the cp_async route
+# (scripts/torch_gather_variants.py, H100)
+BULK_MIN_BYTES_PER_OP = 1536
 _BAG_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PTR, _I32 = ctypes.c_void_p, ctypes.c_int
+# each C entry point's parameters, in the order csrc/gather_runahead.cu
+# declares them
+ARGTYPES = {
+    # (route, table, idx, out, n_tiles, block_rows, row_bytes, depth,
+    #  grid_blocks, stream)
+    "runahead_gather_launch": [_I32] + [_PTR] * 3 + [_I32] * 5 + [_PTR],
+    # (table, idx, out, n, row_bytes, stream)
+    "pipelined_gather_launch": [_PTR] * 3 + [_I32] * 2 + [_PTR],
+    # (dtype, table, idx, w, out, S, K, D, depth, stream)
+    "gather_bag_launch": [_I32] + [_PTR] * 4 + [_I32] * 4 + [_PTR],
+    # (dtype, K, D, depth, warps)
+    "gather_bag_warps_per_sm": [_I32] * 4 + [_PTR],
+}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gather_runahead")
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.runahead_gather_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
-    lib.pipelined_gather_launch.argtypes = [ptr] * 3 + [i32] * 2 + [ptr]
-    lib.gather_bag_launch.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr]
-    lib.gather_bag_warps_per_sm.argtypes = [i32] * 4 + [ptr]
-    for fn in (lib.runahead_gather_launch, lib.pipelined_gather_launch,
-               lib.gather_bag_launch, lib.gather_bag_warps_per_sm):
+    for name, argtypes in ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def bulk_fits(row_bytes: int, block_rows: int, depth: int) -> bool:
+    """Whether a ring of ``depth`` tiles of ``block_rows`` rows of
+    ``row_bytes`` and one barrier a stage fit a block's shared memory."""
+    return depth * (block_rows * row_bytes + BARRIER_BYTES) <= MAX_SMEM_BYTES
+
+
+def route(row_bytes: int, block_rows: int, depth: int) -> str:
+    """The runahead gather's route for that ring, by shape alone:
+    ``"bulk"`` (one TMA bulk copy a row, one bulk store a tile, one warp a
+    block) where it fits (:func:`bulk_fits`) and its operations move at
+    least :data:`BULK_MIN_BYTES_PER_OP` bytes each over the blocks an SM
+    holds, else ``"cp_async"`` (16-byte copies through registers, eight
+    warps a block).  Below that the one warp of each bulk block waits on
+    its operations: 512-byte rows, 8 a tile, 15 deep fit three blocks an
+    SM and run slower than on cp_async."""
+    if not bulk_fits(row_bytes, block_rows, depth):
+        return "cp_async"
+    smem = depth * (block_rows * row_bytes + BARRIER_BYTES)
+    blocks = min(MAX_BLOCKS_PER_SM,
+                 SM_SMEM_BYTES // (smem + BLOCK_RESERVED_BYTES))
+    per_op = blocks * block_rows * row_bytes / (block_rows + 1)
+    return "bulk" if per_op >= BULK_MIN_BYTES_PER_OP else "cp_async"
 
 
 def _check_device(who: str, **tensors) -> torch.device:
@@ -92,7 +137,8 @@ def _check_index(who: str, idx: torch.Tensor, dims: int) -> None:
 
 def runahead_gather(table: torch.Tensor, idx: torch.Tensor, *,
                     block_rows: int = 8, depth: int = 2,
-                    grid_blocks: int | None = None) -> torch.Tensor:
+                    grid_blocks: int | None = None,
+                    use: str | None = None) -> torch.Tensor:
     """out[i] = table[idx[i]] with ``depth`` index blocks of ``block_rows``
     row copies in flight per CUDA block.  table [V, D] (rows a multiple of
     16 bytes), idx [n] int32 with n % block_rows == 0 -> [n, D].
@@ -100,10 +146,13 @@ def runahead_gather(table: torch.Tensor, idx: torch.Tensor, *,
     ``grid_blocks`` caps the number of CUDA blocks (None: as many as fill
     the card), which fixes the rows in flight on the card at
     ``grid_blocks * depth * block_rows``: the MSHR count of the paper's
-    Fig. 14 sweep."""
+    Fig. 14 sweep.  The kernel's route is :func:`route`'s, or ``use``
+    (``"bulk"`` or ``"cp_async"``: to time one against the other)."""
     who = "runahead_gather"
     if grid_blocks is not None and grid_blocks < 1:
         raise ValueError(f"{who}: grid_blocks={grid_blocks} must be >= 1")
+    if use not in (None, *ROUTES):
+        raise ValueError(f"{who}: use={use!r} not in {ROUTES}")
     device = _check_device(who, table=table, idx=idx)
     row_bytes = _check_rows(who, table)
     _check_index(who, idx, 1)
@@ -117,15 +166,22 @@ def runahead_gather(table: torch.Tensor, idx: torch.Tensor, *,
         raise ValueError(f"{who}: a ring of {depth} x {block_rows} rows of "
                          f"{row_bytes} bytes exceeds {MAX_SMEM_BYTES} bytes "
                          f"of shared memory")
+    if use == "bulk" and not bulk_fits(row_bytes, block_rows, depth):
+        raise ValueError(f"{who}: a ring of {depth} x {block_rows} rows of "
+                         f"{row_bytes} bytes leaves no room in shared memory "
+                         f"for the bulk route's barriers")
+    which = use or route(row_bytes, block_rows, depth)
     out = torch.empty((n, table.shape[1]), dtype=table.dtype, device=device)
     if n == 0:
         return out
     with torch.cuda.device(device):
         err = _lib().runahead_gather_launch(
-            table.data_ptr(), idx.data_ptr(), out.data_ptr(), n_tiles,
-            block_rows, row_bytes, depth, grid_blocks or 0, _stream(device))
+            ROUTES.index(which), table.data_ptr(), idx.data_ptr(),
+            out.data_ptr(), n_tiles, block_rows, row_bytes, depth,
+            grid_blocks or 0, _stream(device))
     _raise_on(who, err)
     runahead_gather.launches += 1
+    runahead_gather.route_launches[which] += 1
     return out
 
 
@@ -206,5 +262,6 @@ def bag_warps_per_sm(table: torch.Tensor, k: int, depth: int = 2) -> int:
 
 
 runahead_gather.launches = 0
+runahead_gather.route_launches = dict.fromkeys(ROUTES, 0)
 pipelined_gather.launches = 0
 gather_bag.launches = 0

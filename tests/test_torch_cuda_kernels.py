@@ -7,7 +7,9 @@ These need the card and skip without one.  On the card:
 ``chip_smoke.py`` holds the same kernels at the full sizes of their path;
 here the shapes reach the corners the full sizes do not: rows of more
 than 32 chunks of 16 bytes, fan-ins over 32, block_rows that are no
-multiple of the warps of a block, depths clamped by the item count, a
+multiple of the warps of a block, both routes of the runahead gather
+(TMA bulk copies and cp.async) at every depth 1 to 16 with rings that
+wrap, depths clamped by the item count, a
 grid with more sets than ways, addresses that wrap in int32, attention
 tiles that the causal diagonal, the window, the tail or a query offset
 cut, the wgmma route's tiles one past and one short (Sq, Sk around 128
@@ -75,14 +77,16 @@ def _bits(t):
     (700, 1024, torch.bfloat16, 40, 5, 4),     # 128 chunks a row
 ])
 @pytest.mark.parametrize("grid_blocks", [None, 1, 7])
+@pytest.mark.parametrize("use", kernel.ROUTES)
 def test_gathers_are_bit_identical(card, v, d, dtype, n, block_rows, depth,
-                                   grid_blocks):
+                                   grid_blocks, use):
     table = _table(v, d, dtype, 0, card)
     idx = torch.from_numpy(np.random.default_rng(1).integers(
         0, v, n).astype(np.int32)).to(card)
     want = _bits(ref.gather_ref(table, idx))
     out = kernel.runahead_gather(table, idx, block_rows=block_rows,
-                                 depth=depth, grid_blocks=grid_blocks)
+                                 depth=depth, grid_blocks=grid_blocks,
+                                 use=use)
     torch.cuda.synchronize()
     assert torch.equal(_bits(out), want)
     assert torch.equal(_bits(kernel.pipelined_gather(table, idx)), want)
@@ -112,16 +116,18 @@ def test_gather_wrappers_refuse_what_the_kernels_do_not_take(card):
     (1000, 128, torch.bfloat16, 640, 2, 3),    # each block's ring wraps
     (300, 200, torch.float32, 36, 3, None),    # 12 tiles: depth clamps
 ])
+@pytest.mark.parametrize("use", kernel.ROUTES)
 def test_runahead_gather_at_the_allocators_depths(card, depth, v, d, dtype,
                                                    n, block_rows,
-                                                   grid_blocks):
+                                                   grid_blocks, use):
     """Depths 9 to 16, which ``core.runahead.allocate`` plans, bit for
-    bit."""
+    bit on both routes."""
     table = _table(v, d, dtype, 0, card)
     idx = torch.from_numpy(np.random.default_rng(depth).integers(
         0, v, n).astype(np.int32)).to(card)
     out = kernel.runahead_gather(table, idx, block_rows=block_rows,
-                                 depth=depth, grid_blocks=grid_blocks)
+                                 depth=depth, grid_blocks=grid_blocks,
+                                 use=use)
     torch.cuda.synchronize()
     assert torch.equal(_bits(out), _bits(ref.gather_ref(table, idx)))
     assert torch.equal(_bits(ops.gather(table, idx, impl="runahead",
@@ -148,6 +154,69 @@ def test_runahead_gather_ring_at_the_shared_memory_limit(card):
     out = kernel.runahead_gather(wide, few, block_rows=1, depth=16)
     torch.cuda.synchronize()
     assert torch.equal(_bits(out), _bits(ref.gather_ref(wide, few)))
+
+
+# (row bytes, block_rows, depth) for every ring of rows of 16, 512 and
+# 12,288 B and 1, 3, 8 and 16 rows a tile that fits a block
+RINGS = [(row, rows, depth) for row in (16, 512, 12_288)
+         for rows in (1, 3, 8, 16) for depth in range(1, 17)
+         if depth * rows * row <= kernel.MAX_SMEM_BYTES]
+
+
+@pytest.mark.parametrize("row_bytes,block_rows,depth", RINGS)
+@pytest.mark.parametrize("use", kernel.ROUTES)
+def test_runahead_gather_routes_at_every_depth(card, row_bytes, block_rows,
+                                                depth, use):
+    """Both routes bit for bit at every depth 1-16, f32 and bf16, on the
+    grid that fills the card and on 1 and 7 blocks, with tiles enough that
+    every block's ring wraps on the full grid too (one more than a ring
+    for each block the card can hold, plus a ragged 3)."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    smem = depth * (block_rows * row_bytes + kernel.BARRIER_BYTES) + 1024
+    per_sm = min(32 if use == "bulk" else 8, 233_472 // smem)
+    n = (sms * per_sm * (depth + 1) + 3) * block_rows
+    rng = np.random.default_rng(depth)
+    for dtype in (torch.float32, torch.bfloat16):
+        d = row_bytes // torch.tensor([], dtype=dtype).element_size()
+        v = 4096 if row_bytes < 12_288 else 1024
+        table = _table(v, d, dtype, depth, card)
+        idx = torch.from_numpy(rng.integers(0, v, n).astype(np.int32)) \
+            .to(card)
+        want = ref.gather_ref(table, idx).view(torch.uint8)
+        for grid_blocks in (None, 1, 7):
+            out = kernel.runahead_gather(table, idx, block_rows=block_rows,
+                                         depth=depth, grid_blocks=grid_blocks,
+                                         use=use)
+            torch.cuda.synchronize()
+            assert torch.equal(out.view(torch.uint8), want), (dtype,
+                                                              grid_blocks)
+
+
+def test_runahead_gather_counts_launches_by_route(card):
+    """``route_launches`` counts each launch once, on the route it took:
+    the route rule's without ``use``; ``use="bulk"`` is refused where the
+    ring leaves no room for the barriers, and the cp_async route takes
+    that ring."""
+    fits = kernel.MAX_SMEM_BYTES // (16 * 4)          # the exact-limit ring
+    table = _table(40, fits, torch.float32, 0, card)
+    idx = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 40, 64).astype(np.int32)).to(card)
+    small = _table(64, 128, torch.float32, 0, card)
+    before = dict(kernel.runahead_gather.route_launches)
+    kernel.runahead_gather(small, idx, block_rows=8, depth=2)
+    kernel.runahead_gather(small, idx, block_rows=8, depth=2,
+                           use="cp_async")
+    with pytest.raises(ValueError, match="barriers"):
+        kernel.runahead_gather(table, idx, block_rows=1, depth=16,
+                               use="bulk")
+    out = kernel.runahead_gather(table, idx, block_rows=1, depth=16)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out), _bits(ref.gather_ref(table, idx)))
+    rule = kernel.route(512, 8, 2)
+    want = dict(before)
+    want[rule] += 1
+    want["cp_async"] += 2
+    assert kernel.runahead_gather.route_launches == want
 
 
 @pytest.mark.parametrize("name", ["gcn_cora", "grad", "rgb"])

@@ -16,6 +16,9 @@ float32 products added in k order, what the CUDA kernel computes bit for
 bit) is held to the Pallas kernel and to ``ref.gather_bag_ref`` at the
 same tolerances.
 """
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +27,8 @@ import torch
 from repro.kernels.gather_runahead import ops as jax_ops
 from repro.kernels.gather_runahead import ref as jax_ref
 from repro_torch.checkpoint.convert import to_tensor
+from repro_torch.kernels import _build
+from repro_torch.kernels.gather_runahead import gather_runahead as kernel
 from repro_torch.kernels.gather_runahead import ops, ref
 
 
@@ -97,6 +102,43 @@ def test_runahead_refuses_a_partial_block(block_rows):
     with pytest.raises(ValueError, match="multiple of block_rows"):
         ops.gather(table, idx, impl="runahead", block_rows=block_rows)
     assert ops.gather(table, idx, impl="pipelined").shape == (30, 16)
+
+
+@pytest.mark.parametrize("row_bytes,block_rows,depth,want", [
+    (12_288, 1, 15, "bulk"),      # the allocator's plan at dbrx-132b's width
+    (512, 8, 2, "bulk"),          # phase 7's stream at its default depth
+    (512, 8, 8, "bulk"),          # six blocks an SM: 2,731 B an operation
+    (512, 8, 15, "cp_async"),     # three blocks an SM: 1,365 B an operation
+    (2_048, 8, 8, "bulk"),        # one block an SM: 1,820 B an operation
+    (14_528, 1, 16, "cp_async"),  # a ring that fills shared memory exactly
+    (14_512, 1, 16, "bulk"),      # 16 bytes a row less: room for barriers
+])
+def test_runahead_route_of_each_shape(row_bytes, block_rows, depth, want):
+    """The route rule, by shape alone: the bulk route wherever its ring
+    and one 8-byte barrier a stage fit a block's 232,448 bytes and its
+    TMA operations move at least 1,536 bytes each over the blocks an SM
+    holds (scripts/torch_gather_variants.py: on the card the cp_async
+    route was the faster at 512-byte rows, 8 a tile, depths 15 and 16, and
+    the slower at every other shape where both ran)."""
+    assert kernel.route(row_bytes, block_rows, depth) == want
+
+
+@pytest.mark.parametrize("name", sorted(kernel.ARGTYPES))
+def test_ctypes_signature_matches_the_source(name):
+    """The wrapper's argtypes follow each C entry point, parameter for
+    parameter (ctypes would cut a pointer passed as an int, or shift every
+    argument after a missing one)."""
+    src = _build.SOURCES["gather_runahead"].read_text()
+    params = re.search(rf"int {name}\((.*?)\)", src, re.S).group(1)
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in params.split(",")]
+    assert kernel.ARGTYPES[name] == want
+
+
+def test_runahead_refuses_an_unknown_route():
+    table, idx = torch.zeros(64, 16), torch.zeros(32, dtype=torch.int32)
+    with pytest.raises(ValueError, match="use"):
+        kernel.runahead_gather(table, idx, use="tma")
 
 
 def test_gather_refuses_an_unknown_impl():
