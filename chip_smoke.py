@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, runahead, training, MoE, SSM,
-encoder-decoder and cache-reconfiguration paths on one CUDA card and check
-them.
+encoder-decoder and cache-reconfiguration paths and its sweep service on
+one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -112,7 +112,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     depth must be bit-identical to ``embed[tokens]``, with exactly 2
     profiler launches and 1 gather, on the bulk route; the gather (and
     its cp_async route, bit-identical too) timed by graph replay in turns
-    with ``index_select``, against its bound.
+    with ``index_select``, against its bound;
+16. run the crash-safe sweep service (``repro_torch.core.cgra.sweep``),
+    whose worker pool forks before anything initializes CUDA (the
+    script's first act on the card's machine): the ten Table-1 kernels
+    under ``examples/simulate_cgra.py``'s four single-cache rows and
+    phase 15's four Fig. 17 configurations (80 points) into a fresh
+    temporary store, every point computed and the 40 Fig. 17 points equal
+    to phase 15's ``simulate_batch`` Stats field for field; again into
+    the same store, none computed and the same results; into a second
+    store under a seeded ``mixed`` chaos plan (worker crashes, task hangs,
+    torn records, a dropped index), where the crash's pool rebuild must
+    degrade to inline work (CUDA is initialized by then), the results
+    must be the cold run's bit for bit and a re-read must recompute
+    exactly the torn records; then ``reconfigure_cached`` for the ten
+    kernels at window 8,192, its profile on the card: cold, the
+    ``cache_grid_scan`` counter set to 0 just before and read just after
+    must equal phase 15's non-empty streams, with phase 15's allocations,
+    lines, profit and configuration; warm, no launch, the same results
+    and no ``h_curves``.  Sweep times, points per second and
+    ``reconfigure_cached`` cold vs warm ms are printed beside the card.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -123,6 +142,7 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -181,6 +201,8 @@ FIG17_PAPER = {"real_nora": 4.59, "real_ra": 3.22, "rand_nora": 2.10,
 # the allocator's batch (tokens) and budget (32 KiB tiles), as in
 # examples/autotune_vmem.py but at train_4k's sequence
 ALLOC_B, ALLOC_S, ALLOC_BUDGET = 8, 4_096, 16
+# phase 16's chaos plan: the sweep's "mixed" profile under a fixed seed
+CHAOS_SEED = 16
 
 
 def card_line() -> str:
@@ -1998,11 +2020,11 @@ def phase_reconfig(flush: torch.Tensor) -> dict:
     print(f"phase 15: the ten Table-1 traces ({sum(map(len, traces.values()))}"
           f" accesses) built on the host in {time.monotonic() - t0:.2f} s",
           flush=True)
-    launches, results, err = {}, {}, 0.0
+    launches, results, err, nonempty = {}, {}, 0.0, {}
     for window in (FIG17_WINDOW, None):
         sizes = [a.size for tr in traces.values()
                  for a, _ in sample_streams(tr, base, window)]
-        expect = sum(n > 0 for n in sizes)
+        expect = nonempty[window] = sum(n > 0 for n in sizes)
         torch.cuda.synchronize()
         cache_grid.cache_grid_scan.launches = 0
         t0 = time.perf_counter()
@@ -2050,12 +2072,14 @@ def phase_reconfig(flush: torch.Tensor) -> dict:
               flush=True)
 
     gains = {key: [] for key in FIG17_PAPER}
+    fig17 = {}
     t0 = time.monotonic()
     for name, tr in traces.items():
         res = results[FIG17_WINDOW][name]
         cfgs = [dataclasses.replace(c, runahead=ra)
                 for c in (base, res.config) for ra in (False, True)]
         b0, b1, n0, n1 = simulator.simulate_batch(tr, cfgs)
+        fig17[name] = dict(result=res, cfgs=cfgs, stats=[b0, b1, n0, n1])
         kind = "real" if name in REAL_DATA_KERNELS else "rand"
         g0 = (b0.cycles - n0.cycles) / b0.cycles
         g1 = (b1.cycles - n1.cycles) / b1.cycles
@@ -2072,7 +2096,7 @@ def phase_reconfig(flush: torch.Tensor) -> dict:
                       for key in FIG17_PAPER), flush=True)
     return dict(launches=sum(launches.values()), err=err,
                 profile=times[FIG17_WINDOW], profile_whole=times[None],
-                gains=avg)
+                gains=avg, fig17=fig17, streams=nonempty[FIG17_WINDOW])
 
 
 def phase_allocator(flush: torch.Tensor) -> dict:
@@ -2201,6 +2225,170 @@ def phase_allocator(flush: torch.Tensor) -> dict:
                 plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 library_ms=library_ms, depth2_ms=depth2_ms)
 
+
+def sweep_grid(fig17: dict) -> tuple[list, dict]:
+    """Phase 16's 80 points: each Table-1 kernel at its default size under
+    ``examples/simulate_cgra.py``'s four single-cache rows and under phase
+    15's four Fig. 17 configurations (base and reconfigured, runahead off
+    and on).  Returns the points and, by point index, phase 15's Stats."""
+    from repro_torch.core.cgra import presets
+
+    rows = (presets.SPM_ONLY_4K, presets.SPM_ONLY_133K, presets.CACHE_SPM,
+            presets.RUNAHEAD)
+    points, want = [], {}
+    for name in PAPER_KERNELS:
+        points += [(name, cfg) for cfg in rows]
+        for cfg, stats in zip(fig17[name]["cfgs"], fig17[name]["stats"]):
+            want[len(points)] = stats
+            points.append((name, cfg))
+    return points, want
+
+
+def same_results(got, want, what: str) -> None:
+    """Stats (field for field) and trace metadata of two sweeps' results
+    of one grid, in order."""
+    for g, w in zip(got, want, strict=True):
+        if g.stats != w.stats or g.trace_meta != w.trace_meta:
+            raise AssertionError(f"{what}: {g.point[0]} "
+                                 f"{g.point[1]} gives {g.stats} "
+                                 f"(meta {g.trace_meta}), want {w.stats} "
+                                 f"(meta {w.trace_meta})")
+
+
+def timed_sweep(sw, points, root: Path, workers: int, chaos) -> tuple:
+    t0 = time.perf_counter()
+    res = sw.sweep(points, store=sw.SimCache(root), workers=workers,
+                   chaos=chaos)
+    return res, time.perf_counter() - t0
+
+
+def phase_sweep(sw, workers: int, reconf: dict) -> dict:
+    """The crash-safe sweep service on the card's machine: phase 16's grid
+    into a fresh store (every point computed; the Fig. 17 points equal to
+    phase 15's ``simulate_batch`` Stats), again into the same store (none
+    computed, the same results), and into a second store under a seeded
+    ``mixed`` chaos plan (worker crashes, torn records, a dropped index)
+    with CUDA initialized: the pool's rebuild degrades to inline work,
+    the results are the cold run's bit for bit, and a re-read recomputes
+    exactly the torn records.  Then ``reconfigure_cached`` for the ten
+    kernels, its profile on the card: cold, ``cache_grid_scan`` launched
+    once per non-empty stream and phase 15's result; warm, no launch."""
+    from repro_torch.core.cgra import cache_grid, presets
+    from repro_torch.runtime import chaos
+
+    points, want = sweep_grid(reconf["fig17"])
+    pool = sw._executor
+    mode = (f"{workers} forked workers" if pool is not None
+            else "inline (one CPU: no pool)")
+    print(f"phase 16: {len(points)} points (10 Table-1 kernels x 8 "
+          f"configurations), sweep {mode}", flush=True)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_simcache_") as tmp:
+        tmp = Path(tmp)
+        cold, cold_s = timed_sweep(sw, points, tmp / "cold", workers, None)
+        computed = sum(not r.cached for r in cold)
+        if computed != len(points):
+            raise AssertionError(f"cold sweep: {computed} of {len(points)} "
+                                 f"points computed into a fresh store")
+        for i, stats in want.items():
+            if cold[i].stats != stats:
+                raise AssertionError(
+                    f"cold sweep: {cold[i].point[0]} {cold[i].point[1]} "
+                    f"gives {cold[i].stats}, phase 15's simulate_batch "
+                    f"{stats}")
+        warm, warm_s = timed_sweep(sw, points, tmp / "cold", workers, None)
+        if any(not r.cached for r in warm):
+            raise AssertionError(f"warm sweep computed "
+                                 f"{sum(not r.cached for r in warm)} points")
+        same_results(warm, cold, "warm sweep")
+        engines = {}
+        for r in cold:
+            engines[r.engine] = engines.get(r.engine, 0) + 1
+        print(f"phase 16: cold sweep {cold_s:.3f} s "
+              f"({len(points) / cold_s:.2f} points/s, {computed} computed, "
+              f"engines "
+              f"{json.dumps(engines, sort_keys=True)}; the 40 Fig. 17 "
+              f"points equal phase 15's simulate_batch Stats); warm "
+              f"{warm_s:.3f} s ({len(points) / warm_s:.1f} points/s, 0 "
+              f"computed, results equal); {card_line()}", flush=True)
+
+        plan = chaos.ChaosPlan(CHAOS_SEED, "mixed", chaos.PROFILES["mixed"])
+        hit, hit_s = timed_sweep(sw, points, tmp / "chaos", workers, plan)
+        rep = sw.LAST_REPORT
+        same_results(hit, cold, "chaos sweep")
+        if rep is None or rep.retries < 1 or not rep.ok():
+            raise AssertionError(f"chaos sweep: want at least one retry and "
+                                 f"no quarantine, got "
+                                 f"{rep and rep.counters()}")
+        if pool is not None and (rep.crashes < 1 or rep.pool_rebuilds < 1
+                                 or sw._executor is not None):
+            raise AssertionError(
+                f"chaos sweep: want a worker crash and the pool's rebuild "
+                f"declined after CUDA (inline work), got {rep.counters()}, "
+                f"pool {sw._executor}")
+        store = sw.SimCache(tmp / "chaos")
+        reread = sw.sweep(points, store=store, workers=workers, chaos=None)
+        same_results(reread, cold, "re-read of the chaos store")
+        recomputed = sum(not r.cached for r in reread)
+        if recomputed != store.quarantined:
+            raise AssertionError(
+                f"re-read of the chaos store: {recomputed} points "
+                f"recomputed, {store.quarantined} torn records quarantined;"
+                f" every other point must be durable")
+        print(f"phase 16: chaos sweep (seed {CHAOS_SEED}, mixed) "
+              f"{hit_s:.3f} s: {json.dumps(rep.counters(), sort_keys=True)}"
+              f"; {'degraded to inline after the crash' if pool else 'inline'}"
+              f"; results bit-identical to the cold sweep; a re-read "
+              f"quarantined {store.quarantined} torn records and recomputed "
+              f"exactly those", flush=True)
+        out.update(points=len(points), workers=workers if pool else 1,
+                   cold_s=cold_s, warm_s=warm_s, chaos_s=hit_s,
+                   chaos=rep.counters(), torn=store.quarantined)
+
+        store = sw.SimCache(tmp / "reconfig")
+        fig17 = reconf["fig17"]
+        ms = {}
+        for phase_name in ("cold", "warm"):
+            torch.cuda.synchronize()
+            cache_grid.cache_grid_scan.launches = 0
+            ms[phase_name] = {}
+            for name in PAPER_KERNELS:
+                t0 = time.perf_counter()
+                res = sw.reconfigure_cached(name, presets.RECONFIG,
+                                            window=FIG17_WINDOW, store=store)
+                torch.cuda.synchronize()
+                ms[phase_name][name] = (time.perf_counter() - t0) * 1e3
+                ref = fig17[name]["result"]
+                if (res.allocations, res.lines, res.profit, res.config) != (
+                        ref.allocations, ref.lines, ref.profit, ref.config):
+                    raise AssertionError(
+                        f"reconfigure_cached {name} ({phase_name}): "
+                        f"{res.allocations} {res.lines} {res.profit}, phase "
+                        f"15's {ref.allocations} {ref.lines} {ref.profit}")
+                if (res.h_curves is None) != (phase_name == "warm"):
+                    raise AssertionError(f"reconfigure_cached {name} "
+                                         f"({phase_name}): h_curves "
+                                         f"{type(res.h_curves).__name__}")
+            launches = cache_grid.cache_grid_scan.launches
+            expect = reconf["streams"] if phase_name == "cold" else 0
+            if launches != expect:
+                raise AssertionError(
+                    f"reconfigure_cached ({phase_name}): {launches} "
+                    f"cache_grid_scan launches, want {expect}")
+            out[f"{phase_name}_launches"] = launches
+        print(f"phase 16: reconfigure_cached, ten kernels at window "
+              f"{FIG17_WINDOW}: cold {out['cold_launches']} cache_grid_scan "
+              f"launches (= phase 15's non-empty streams), warm 0, results "
+              f"phase 15's; ms cold vs warm (trace build, sampling, profile,"
+              f" DP and store write vs a store read): "
+              + "; ".join(f"{n} {ms['cold'][n]:.2f} vs {ms['warm'][n]:.3f}"
+                          for n in PAPER_KERNELS)
+              + f"; {card_line()}", flush=True)
+        out.update(reconfigure_cached_ms={
+            k: round(sum(v.values()), 4) for k, v in ms.items()})
+    return out
+
+
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
     from repro_torch.models import api
@@ -2215,6 +2403,22 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.cgra import sweep
+
+    # phase 16's sweep workers fork now, before anything initializes CUDA
+    workers = len(os.sched_getaffinity(0))
+    pool = sweep.ensure_pool(workers)
+    print(f"phase 16 (set up before phase 1): "
+          + (f"{workers} sweep workers forked" if pool is not None else
+             "one CPU: the sweep runs inline"), flush=True)
+    try:
+        return phases(sweep, workers)
+    finally:
+        sweep.shutdown_pool()
+
+
+def phases(sweep, workers: int) -> int:
+    """Phases 1-16 (the sweep's pool is already forked)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
 
@@ -2312,6 +2516,7 @@ def main() -> int:
     reconf = phase_reconfig(flush)
     alloc = phase_allocator(flush)
     del flush
+    swept = phase_sweep(sweep, workers, reconf)
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
@@ -2333,6 +2538,7 @@ def main() -> int:
                                  reconf["err"], "reconfig_profile", {
                                      "window_8192": reconf["profile"],
                                      "window_none": reconf["profile_whole"]})}
+    # phase 16's launches (reconfigure_cached, cold) beside phase 6 and 15's
     for name, where in replaces.items():
         entry = {
             "name": name, "route": "cuda",
@@ -2347,6 +2553,10 @@ def main() -> int:
             n15, err15, key, extra = later[name]
             entry["launches_by_phase"] = {"6": entry["launches"], "15": n15}
             entry["launches"] += n15
+            if name == "cache_grid_scan":
+                entry["launches_by_phase"]["16"] = swept["cold_launches"]
+                entry["launches"] += swept["cold_launches"]
+                entry["sweep_service"] = swept
             entry["max_abs_err"] = max(entry["max_abs_err"], err15)
             entry[key] = extra
         kernels.append(entry)

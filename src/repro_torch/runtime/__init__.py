@@ -1,2 +1,3 @@
 """Fault handling: the checkpoint-restart training driver, the straggler
-watchdog and chaos plans for the serving engine."""
+watchdog, chaos plans, the sweep's task supervisor and its lease-based
+work claiming."""

@@ -1,12 +1,13 @@
 """Unified, deterministic chaos-injection layer.
 
-The port's copy of the JAX package's ``runtime/chaos.py``: the plan, rule
-and fault types and the ``REPRO_CHAOS`` parser, which the serving engine
-uses for injected backpressure and straggler steps.  The plan format and
-the fire decision are the same as the reference's, so one
-``REPRO_CHAOS=<seed>:<profile>`` drives both packages alike.  The sweep-side
-helpers (applying task and storage faults) stay with the sweep, which the
-port does not need.
+The port's copy of the JAX package's ``runtime/chaos.py``: one seed-keyed
+fault-injection API shared by every subsystem that rehearses failure: the
+sweep engine (worker crashes, task hangs, torn simcache writes, dropped
+indexes), the elastic sweep service (lost workers, expired leases, torn
+journal entries) and the serving engine (injected backpressure and
+straggler steps).  The plan format and the fire decision are the
+reference's, so one ``REPRO_CHAOS=<seed>:<profile>`` drives both packages
+alike.
 
 Design rules:
 
@@ -26,13 +27,20 @@ Design rules:
 
 Activation for CI drills: ``REPRO_CHAOS=<seed>:<profile>`` (see
 :data:`PROFILES`); library callers can also construct plans directly and
-pass them to ``ServeEngine(chaos=...)``.
+pass them to ``sweep.sweep(chaos=...)`` / ``ServeEngine(chaos=...)``.
 
-Sites wired in the port (prefix-matched); the profiles keep the
-reference's sweep-side rules so that one ``REPRO_CHAOS`` value parses in
-both packages, but only these sites ever fire here:
+Sites currently wired (prefix-matched, so ``sweep.task`` covers both):
 
 ======================  ====================================================
+``sweep.task.batch``    a lane-batch sweep task, keyed by task key
+``sweep.task.scalar``   a scalar (golden-engine) sweep task / fallback point
+``simcache.put``        a just-written result record, keyed by point key
+``simcache.index``      the simcache ``index.json``
+``journal.append``      a just-written sweep-journal entry, keyed by point
+``lease.heartbeat``     one lease renewal, keyed by point, attempt = beat
+``service.point``       an elastic worker surviving one more completed
+                        point (``scripts/torch_sweep_service.py``);
+                        ``crash`` here is whole-worker loss mid-drain
 ``serve.backpressure``  request admission, keyed by request id
 ``serve.step``          one engine step, keyed by step ordinal
 ======================  ====================================================
@@ -43,6 +51,9 @@ import dataclasses
 import hashlib
 import json
 import os
+import time
+
+from repro_torch.runtime.fault_tolerance import SimulatedFailure
 
 #: fault kinds a rule may inject
 KINDS = ("crash",         # kill the worker process (SIGKILL-like os._exit)
@@ -196,3 +207,78 @@ def from_env() -> ChaosPlan | None:
     """The active plan per ``REPRO_CHAOS``, or None when chaos is off."""
     spec = os.environ.get("REPRO_CHAOS")
     return from_spec(spec) if spec else None
+
+
+# ---------------------------------------------------------------------------
+# Applying faults
+# ---------------------------------------------------------------------------
+
+def apply_task_fault(fault: Fault, *, in_worker: bool) -> None:
+    """Apply a crash/hang/raise fault inside a task body.
+
+    ``in_worker`` distinguishes a forked pool worker (where a crash is a
+    real ``os._exit`` — the parent sees ``BrokenProcessPool`` — and a hang
+    is a real long sleep the supervisor must deadline-kill) from inline
+    execution, where both degrade to :class:`SimulatedFailure` so the
+    retry machinery is still exercised without killing the caller.
+    """
+    if fault.kind == "crash":
+        if in_worker:
+            os._exit(73)        # simulated segfault / OOM kill
+        raise SimulatedFailure(f"injected crash at {fault.site}:{fault.key}")
+    if fault.kind == "hang":
+        if in_worker:
+            time.sleep(fault.seconds)
+            return              # if nobody killed us, carry on (too-lax deadline)
+        time.sleep(min(fault.seconds, 0.05))
+        raise SimulatedFailure(f"injected hang at {fault.site}:{fault.key}")
+    if fault.kind == "raise":
+        raise SimulatedFailure(f"injected failure at {fault.site}:{fault.key}")
+    raise ValueError(f"not a task fault: {fault.kind}")
+
+
+def corrupt_record(store, key: str, fault: Fault) -> None:
+    """Apply a storage fault to a just-written store record (parent-side).
+
+    ``store`` is anything with ``path(key)`` and ``root`` — the
+    :class:`~repro_torch.core.cgra.sweep.SimCache` or a
+    :class:`~repro_torch.core.cgra.journal.SweepJournal`.  ``torn_write``
+    truncates the record file mid-way (a crash during a non-atomic write /
+    bit rot); ``lost_write`` simulates dying between the temp-file write
+    and the atomic rename — the record vanishes and a stray ``.tmp`` is
+    left behind; ``drop_index`` deletes ``index.json``.
+    """
+    path = store.path(key)
+    if fault.kind == "torn_write":
+        text = path.read_text()
+        path.write_text(text[:max(1, len(text) // 2)])
+    elif fault.kind == "lost_write":
+        path.with_name(path.stem + ".orphan.tmp").write_text("{\"schema\":")
+        path.unlink(missing_ok=True)
+    elif fault.kind == "drop_index":
+        (store.root / "index.json").unlink(missing_ok=True)
+    else:
+        raise ValueError(f"not a storage fault: {fault.kind}")
+
+
+# ---------------------------------------------------------------------------
+# A chaos-aware probe task (supervisor tests + drills)
+# ---------------------------------------------------------------------------
+
+def probe_task(payload: dict, attempt: int = 0):
+    """Minimal supervised-task body: applies its plan, returns its result.
+
+    ``payload`` keys: ``key``, ``site``, ``result``, optional ``chaos``
+    (a :meth:`ChaosPlan.to_json` blob) and ``ppid`` (the supervising
+    process id — used to tell worker from inline execution).  Module-level
+    so it pickles into pool workers.
+    """
+    blob = payload.get("chaos")
+    if blob:
+        plan = ChaosPlan.from_json(blob)
+        fault = plan.fire(payload.get("site", "probe"), payload["key"],
+                          attempt)
+        if fault is not None:
+            in_worker = os.getpid() != payload.get("ppid", os.getpid())
+            apply_task_fault(fault, in_worker=in_worker)
+    return payload.get("result")

@@ -80,7 +80,7 @@ def test_registries_are_the_references():
     assert cgra.RANDOM_DATA_KERNELS == jax_cgra.RANDOM_DATA_KERNELS
     assert cgra.FRONTIER_KERNELS == jax_cgra.FRONTIER_KERNELS
     assert trace.GCN_DATASETS == jax_trace.GCN_DATASETS
-    assert set(cgra.__all__) == set(jax_cgra.__all__) - {"sweep"}
+    assert set(cgra.__all__) == set(jax_cgra.__all__)
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))

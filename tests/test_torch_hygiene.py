@@ -15,7 +15,8 @@ import torch
 
 from repro.configs import registry as jax_registry
 from repro_torch.configs import registry
-from repro_torch.core.cgra import cache_grid, presets, reconfig, trace
+from repro_torch.core.cgra import (cache_grid, presets, reconfig, sweep,
+                                   trace)
 from repro_torch.core.runahead import allocate
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
@@ -32,7 +33,8 @@ from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
-    (ROOT / "examples").glob("*_torch.py")) + [ROOT / "chip_smoke.py"]
+    (ROOT / "examples").glob("*_torch.py")) + sorted(
+    (ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -185,9 +187,12 @@ def test_profiler_defaults_to_the_card(monkeypatch):
         cache_grid.miss_counts(np.arange(4), grid)
 
 
-def test_reconfiguration_and_allocator_default_to_the_card(monkeypatch):
-    """With no ``device``, reconfigure, profile_curves and allocate want
-    CUDA and raise without it; nothing is profiled on the CPU instead."""
+def test_reconfiguration_and_allocator_default_to_the_card(monkeypatch,
+                                                           tmp_path):
+    """With no ``device``, reconfigure, its store-backed form
+    reconfigure_cached (even when the store holds the result),
+    profile_curves, allocate and the examples that reconfigure want CUDA
+    and raise without it; nothing is profiled on the CPU instead."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tr = trace.src2dest(n=256)
     stream = [(np.arange(16) * 4, np.arange(16))]
@@ -197,8 +202,19 @@ def test_reconfiguration_and_allocator_default_to_the_card(monkeypatch):
         reconfig.profile_curves(stream, [0, 1], [64], 512)
     with pytest.raises(RuntimeError, match="CUDA"):
         allocate({"rows": np.arange(8)})
+    store = sweep.SimCache(tmp_path)
+    spec = ("src2dest", {"n": 256})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep.reconfigure_cached(spec, presets.RECONFIG, store=store)
+    assert not any(tmp_path.iterdir())                  # nothing stored
+    assert sweep.reconfigure_cached(spec, presets.RECONFIG, store=store,
+                                    device="cpu").h_curves is not None
+    with pytest.raises(RuntimeError, match="CUDA"):     # cached: still
+        sweep.reconfigure_cached(spec, presets.RECONFIG, store=store)
     for argv in ([], ["--device", "cuda"]):
-        for example in ("quickstart_torch", "autotune_vmem_torch"):
+        for example in ("quickstart_torch", "autotune_vmem_torch",
+                        "simulate_cgra_torch", "sweep_chaos_torch",
+                        "sweep_elastic_torch"):
             with pytest.raises(RuntimeError, match="CUDA"):
                 _example(example).main(argv)
     assert reconfig.reconfigure(tr, presets.RECONFIG,
