@@ -131,7 +131,24 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     must equal phase 15's non-empty streams, with phase 15's allocations,
     lines, profit and configuration; warm, no launch, the same results
     and no ``h_curves``.  Sweep times, points per second and
-    ``reconfigure_cached`` cold vs warm ms are printed beside the card.
+    ``reconfigure_cached`` cold vs warm ms are printed beside the card;
+17. run the sharding layer (``repro_torch.sharding``) on a one-rank NCCL
+    group (a ``FileStore``, no TCP port) over ``make_host_mesh(1, 1)``:
+    ``build_train_step`` under ``MeshRules(sequence_parallel=False)``
+    (the reference's host-mesh setting) for 2 steps of full-width
+    qwen2-1.5b at phase 9's B 4 x S 4,096 on a state placed by
+    ``state_specs`` (DTensor parameters and moments), the flash counter
+    set to 0 just before and read just after (exactly 2 x 56), then the
+    same 2 steps unsharded from the same seed (the sharded state is
+    copied to the host and freed first); each loss within 1e-4 relative;
+    printed: whether losses and every leaf came out bit-identical, the
+    largest leaf difference and step ms both ways.  Then the full-width
+    ``ServeEngine`` without rules and with them (params placed by
+    ``param_specs``, the paged pools replicated on the mesh), 4 greedy
+    requests of phase 4's first 4 prompts, 32 new tokens each: equal
+    tokens, paged launches = decode steps x 28 with rules, 0 page leaks;
+    decode-step ms both ways (the gap is DTensor's host dispatch).  The
+    group is destroyed at the end of the phase.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -203,6 +220,8 @@ FIG17_PAPER = {"real_nora": 4.59, "real_ra": 3.22, "rand_nora": 2.10,
 ALLOC_B, ALLOC_S, ALLOC_BUDGET = 8, 4_096, 16
 # phase 16's chaos plan: the sweep's "mixed" profile under a fixed seed
 CHAOS_SEED = 16
+# phase 17: sharded training steps, and greedy requests through the engine
+SHARDED_STEPS, SHARDED_REQUESTS = 2, 4
 
 
 def card_line() -> str:
@@ -2389,6 +2408,175 @@ def phase_sweep(sw, workers: int, reconf: dict) -> dict:
     return out
 
 
+def host_leaves(state: dict) -> list:
+    """Every leaf of a (DTensor) state, whole, copied to the host."""
+    from repro_torch import sharding
+
+    return [sharding.full(t).detach().to("cpu", copy=True)
+            for t in state_leaves(state)]
+
+
+def sharded_train(cfg, rules, sharded: bool) -> tuple[list, list, list]:
+    """``SHARDED_STEPS`` steps of phase 9's shape from seed 0, through
+    ``build_train_step`` under ``rules`` or the plain ``train_step``:
+    (losses, step ms, the final state's leaves on the host)."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch import steps, train_lm
+    from repro_torch.models.types import ShapeConfig
+
+    shape = ShapeConfig("train_4k", "train", TRAIN_S, TRAIN_B)
+    opt = steps.make_optimizer(cfg)
+    state = train_lm.init_state(cfg, opt, "cuda", seed=0)
+    if sharded:
+        step_fn = steps.build_train_step(cfg, shape, rules).fn
+    else:
+        def step_fn(state, batch):
+            return steps.train_step(state, batch, cfg, opt, device="cuda")
+    losses, ms = [], []
+    for i in range(SHARDED_STEPS):
+        batch = synthetic_batch(cfg, shape, seed=0, step=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        losses.append(metrics["loss"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    leaves = host_leaves(state)
+    del state, metrics
+    torch.cuda.empty_cache()
+    return losses, ms, leaves
+
+
+def sharded_serve(cfg, params, prompts, rules) -> dict:
+    """Greedy requests through the engine (with ``rules``: params placed
+    on the mesh in place, cache replicated there); counters set to 0 just
+    before and read just after the measured run."""
+    from repro_torch.kernels.paged_attention import paged_attention as kernel
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.scheduler import RequestState
+
+    kw = dict(slots=8, max_len=512, page_size=16, prefill_chunk=64,
+              attn_read="kernel", rules=rules)
+    warm = ServeEngine(cfg, params, **kw)   # DTensor's propagation caches
+    warm.submit(prompts[0][:70], max_new_tokens=4)
+    warm.run()
+    warm.assert_no_leaks()
+    del warm
+    eng = ServeEngine(cfg, params, **kw)
+    torch.cuda.synchronize()
+    kernel.paged_attention.launches = 0
+    reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
+    step_ms = {"decode": [], "prefill": []}
+    while eng.sched.has_work():
+        before = eng.metrics.decode_steps
+        s0 = time.monotonic()
+        if not eng.step():
+            break
+        torch.cuda.synchronize()
+        kind = "decode" if eng.metrics.decode_steps > before else "prefill"
+        step_ms[kind].append((time.monotonic() - s0) * 1e3)
+    launches = kernel.paged_attention.launches
+    eng.assert_no_leaks()
+    for r in reqs:
+        if r.state is not RequestState.FINISHED or len(r.out_tokens) != 32:
+            raise AssertionError(f"request {r.rid}: {r.state} with "
+                                 f"{len(r.out_tokens)} tokens")
+    return {"tokens": [list(r.out_tokens) for r in reqs],
+            "launches": launches, "decode_steps": eng.metrics.decode_steps,
+            "decode_ms": step_ms["decode"], "prefill_ms": step_ms["prefill"],
+            "dtensor": type(eng.params.embed).__name__}
+
+
+def phase_sharded(cfg) -> dict:
+    """Phase 17: the sharding layer on a one-rank NCCL mesh (1, 1)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.rules import MeshRules
+
+    store_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_pg_"))
+    t0 = time.monotonic()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(store_dir / "store"), 1), rank=0, world_size=1,
+        device_id=torch.device("cuda", 0))
+    try:
+        # sequence_parallel=False, as the reference's host-mesh checks run:
+        # with the sequence sharded, the card's torch (2.11) refuses to
+        # flatten [B, S, D] for a matmul ("dimension 1 being sharded")
+        rules = MeshRules(make_host_mesh(1, 1), sequence_parallel=False)
+        print(f"phase 17: one-rank NCCL group and mesh "
+              f"{rules.mesh.mesh_dim_names} {tuple(rules.mesh.shape)} on "
+              f"{rules.mesh.device_type} in {time.monotonic() - t0:.2f} s",
+              flush=True)
+        fa.flash_attention.launches = 0
+        losses, ms, leaves = sharded_train(cfg, rules, sharded=True)
+        flash = fa.flash_attention.launches
+        plain_losses, plain_ms, plain_leaves = sharded_train(cfg, rules,
+                                                             sharded=False)
+        want = SHARDED_STEPS * cfg.n_layers * 2
+        if flash != want:
+            raise AssertionError(f"flash_attention launched {flash} times in "
+                                 f"{SHARDED_STEPS} sharded steps; want {want}")
+        for a, b in zip(losses, plain_losses):
+            if not (math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+                raise AssertionError(f"sharded losses {losses} vs plain "
+                                     f"{plain_losses}: not within 1e-4")
+        same = [bits_equal(a, b) for a, b in zip(leaves, plain_leaves)]
+        worst = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(leaves, plain_leaves))
+        del leaves, plain_leaves
+        print(f"phase 17: {SHARDED_STEPS} steps of {cfg.name} at B "
+              f"{TRAIN_B} x {TRAIN_S} through build_train_step on the mesh "
+              f"(state by state_specs) vs plain train_step, seed 0: losses "
+              f"{losses} vs {plain_losses}, bit-identical "
+              f"{losses == plain_losses}; leaves bit-identical "
+              f"{sum(same)}/{len(same)}, largest leaf difference {worst!r}; "
+              f"step ms sharded {[round(x, 1) for x in ms]} vs plain "
+              f"{[round(x, 1) for x in plain_ms]}; flash_attention launches "
+              f"{flash} = {SHARDED_STEPS} steps x {cfg.n_layers} layers x 2; "
+              f"{card_line()}", flush=True)
+
+        rng = np.random.default_rng(0)          # phase 4's prompts
+        lens = rng.integers(32, 385, size=12)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+                   for n in lens][:SHARDED_REQUESTS]
+        params = api_init(cfg)
+        plain = sharded_serve(cfg, params, prompts, None)
+        mesh = sharded_serve(cfg, params, prompts, rules)
+        del params
+        torch.cuda.empty_cache()
+        if mesh["tokens"] != plain["tokens"]:
+            raise AssertionError(f"greedy tokens on the mesh {mesh['tokens']} "
+                                 f"!= plain {plain['tokens']}")
+        want = mesh["decode_steps"] * cfg.n_layers
+        if mesh["launches"] != want or mesh["dtensor"] != "DTensor":
+            raise AssertionError(f"paged launches {mesh['launches']} != "
+                                 f"{want} on the mesh ({mesh['dtensor']} "
+                                 f"params)")
+        print(f"phase 17: ServeEngine with rules ({mesh['dtensor']} params "
+              f"by param_specs, replicated pools) vs without: "
+              f"{SHARDED_REQUESTS} greedy requests of {lens[:4].tolist()} "
+              f"tokens, 32 new each: tokens equal; decode-step ms mean "
+              f"{statistics.mean(mesh['decode_ms']):.3f} (median "
+              f"{statistics.median(mesh['decode_ms']):.3f}) vs plain "
+              f"{statistics.mean(plain['decode_ms']):.3f} (median "
+              f"{statistics.median(plain['decode_ms']):.3f}) over "
+              f"{len(mesh['decode_ms'])} steps; prefill-chunk ms mean "
+              f"{statistics.mean(mesh['prefill_ms']):.3f} vs "
+              f"{statistics.mean(plain['prefill_ms']):.3f}; paged launches "
+              f"{mesh['launches']} = {mesh['decode_steps']} decode steps x "
+              f"{cfg.n_layers}; page leaks 0; {card_line()}", flush=True)
+        return {"flash": flash, "paged": mesh["launches"],
+                "train_ms": ms, "plain_train_ms": plain_ms,
+                "decode_ms": statistics.mean(mesh["decode_ms"]),
+                "plain_decode_ms": statistics.mean(plain["decode_ms"])}
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
     from repro_torch.models import api
@@ -2398,6 +2586,7 @@ def api_init(cfg):
 
 
 def main() -> int:
+    start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -2412,13 +2601,13 @@ def main() -> int:
           + (f"{workers} sweep workers forked" if pool is not None else
              "one CPU: the sweep runs inline"), flush=True)
     try:
-        return phases(sweep, workers)
+        return phases(sweep, workers, start)
     finally:
         sweep.shutdown_pool()
 
 
-def phases(sweep, workers: int) -> int:
-    """Phases 1-16 (the sweep's pool is already forked)."""
+def phases(sweep, workers: int, start: float) -> int:
+    """Phases 1-17 (the sweep's pool is already forked)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
 
@@ -2517,10 +2706,14 @@ def phases(sweep, workers: int) -> int:
     alloc = phase_allocator(flush)
     del flush
     swept = phase_sweep(sweep, workers, reconf)
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(cfg)
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, **kstats}]
+        "replaces": KERNEL_REPLACES, "launches": launches + sharded["paged"],
+        "launches_by_phase": {"4": launches, "17": sharded["paged"]},
+        **kstats}]
     replaces = {"runahead_gather": f"{GATHER_REPLACES}:91",
                 "pipelined_gather": f"{GATHER_REPLACES}:117",
                 "gather_bag": f"{GATHER_REPLACES}:177",
@@ -2563,8 +2756,9 @@ def phases(sweep, workers: int) -> int:
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": flash_launches + whisper_launches,
-        "launches_by_phase": {"9": flash_launches, "14": whisper_launches},
+        "launches": flash_launches + whisper_launches + sharded["flash"],
+        "launches_by_phase": {"9": flash_launches, "14": whisper_launches,
+                              "17": sharded["flash"]},
         **flash, "whisper_encoder": whisper_flash})
     for name, line in (("moe_dispatch", 45), ("moe_combine", 106)):
         kernels.append({
@@ -2574,6 +2768,8 @@ def phases(sweep, workers: int) -> int:
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
         "replaces": SSD_REPLACES, "launches": ssd_launches, **ssd})
+    print(f"phases 1-17 passed in {time.monotonic() - start:.1f} s",
+          flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -277,6 +277,7 @@ def cache_grid_scan(addrs: torch.Tensor, grid: ConfigGrid) -> torch.Tensor:
     pass (``depth < ways`` per configuration); a grid whose every ``ways``
     is 0 runs the expand pass alone.  Its ``launches`` attribute counts
     calls that launched and nothing else."""
+    _build.refuse_dtensor("cache_grid_scan", addrs)
     if addrs.device.type != "cuda":
         raise ValueError(f"cache_grid_scan: addrs is on {addrs.device}; the "
                          f"kernel takes a CUDA tensor")

@@ -11,6 +11,11 @@ which keeps a build to seconds; the wrappers load the library with
 
 Nothing is built when a module is imported: only a wrapper handed a CUDA
 tensor (or :func:`build`, called by ``chip_smoke.py``) starts ``nvcc``.
+
+Every wrapper first refuses a DTensor (:func:`refuse_dtensor`): its
+``data_ptr()`` is 0 and raises nothing, so a kernel handed one would read
+address 0.  A caller on a mesh hands the wrapper its local shards inside
+a ``local_map`` region.
 """
 from __future__ import annotations
 
@@ -22,8 +27,19 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from torch.distributed.tensor import DTensor
+
 KERNELS_DIR = Path(__file__).resolve().parent
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "kernels"
+
+def refuse_dtensor(who: str, *tensors) -> None:
+    """Raise TypeError if any of ``tensors`` is a DTensor."""
+    for t in tensors:
+        if isinstance(t, DTensor):
+            raise TypeError(f"{who}: got a DTensor; a kernel takes the "
+                            f"plain local tensor (call it in a local_map "
+                            f"region)")
+
 
 SOURCES = {
     "paged_attention": KERNELS_DIR / "paged_attention" / "csrc"

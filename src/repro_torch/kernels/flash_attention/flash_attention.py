@@ -81,6 +81,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """Launch the kernel: q [B,H,Sq,D]; k, v [B,H,Sk,D] -> (y [B,H,Sq,D]
     in q's dtype, lse [B,H,Sq] float32); see ``ref.py`` for the function
     computed.  CUDA tensors only; raises on anything else."""
+    _build.refuse_dtensor("flash_attention", q, k, v)
     _check(q, k, v, window, q_offset)
     b, h, sq, d = q.shape
     sk = k.shape[2]

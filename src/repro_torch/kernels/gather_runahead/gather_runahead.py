@@ -149,6 +149,7 @@ def runahead_gather(table: torch.Tensor, idx: torch.Tensor, *,
     Fig. 14 sweep.  The kernel's route is :func:`route`'s, or ``use``
     (``"bulk"`` or ``"cp_async"``: to time one against the other)."""
     who = "runahead_gather"
+    _build.refuse_dtensor(who, table, idx)
     if grid_blocks is not None and grid_blocks < 1:
         raise ValueError(f"{who}: grid_blocks={grid_blocks} must be >= 1")
     if use not in (None, *ROUTES):
@@ -189,6 +190,7 @@ def pipelined_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """out[i] = table[idx[i]], one row per warp with no ring: the baseline
     the runahead gather is measured against."""
     who = "pipelined_gather"
+    _build.refuse_dtensor(who, table, idx)
     device = _check_device(who, table=table, idx=idx)
     row_bytes = _check_rows(who, table)
     _check_index(who, idx, 1)
@@ -217,6 +219,7 @@ def gather_bag(table: torch.Tensor, idx: torch.Tensor, weights: torch.Tensor,
     float32 or bfloat16 (rows of at most 2048 bytes); idx [S, K] int32;
     weights [S, K] float32 -> [S, D]."""
     who = "gather_bag"
+    _build.refuse_dtensor(who, table, idx, weights)
     device = _check_device(who, table=table, idx=idx, weights=weights)
     row_bytes = _check_rows(who, table)
     _check_index(who, idx, 2)

@@ -102,6 +102,7 @@ def dispatch(x: torch.Tensor, slot: torch.Tensor,
     x [T, D] (rows a multiple of 16 bytes); slot int32 [T] or [T, K],
     K <= 8 -> [n_slots, D]."""
     who = "moe_dispatch"
+    _build.refuse_dtensor(who, x, slot)
     device = _check_device(who, x=x, slot=slot)
     row_bytes = _check_rows(who, "x", x)
     fanin = _check_slots(who, slot, x.shape[0])
@@ -127,6 +128,7 @@ def combine(ye: torch.Tensor, slot: torch.Tensor,
     are few.  ye [n_slots, D] float32 or bfloat16; slot int32 and weights
     float32 [T, K], K <= 8 -> [T, D]."""
     who = "moe_combine"
+    _build.refuse_dtensor(who, ye, slot, weights)
     device = _check_device(who, ye=ye, slot=slot, weights=weights)
     row_bytes = _check_rows(who, "ye", ye)
     if slot.dim() != 2:

@@ -98,6 +98,8 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
     """Launch the kernel: q [B,H,D]; pages [N,page,Hkv,D]; page_table [B,P]
     int32; lengths [B] int32 -> [B,H,D] in q's dtype (see ``ref.py`` for
     the function computed).  CUDA tensors only; raises on anything else."""
+    _build.refuse_dtensor("paged_attention", q, k_pages, v_pages, page_table,
+                          lengths)
     _check(q, k_pages, v_pages, page_table, lengths)
     b, h, d = q.shape
     _, page, hkv, _ = k_pages.shape

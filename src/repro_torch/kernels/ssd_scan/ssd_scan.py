@@ -90,6 +90,7 @@ def ssd_scan(xh, dt, a_log, b_mat, c_mat, d_skip, *, out_dtype=None,
     :func:`route` names, or on ``use="simt"`` (any operands the scalar
     kernel takes: to time it against the other).  CUDA tensors only;
     raises on anything else."""
+    _build.refuse_dtensor("ssd_scan", xh, dt, a_log, b_mat, c_mat, d_skip)
     out_dtype = xh.dtype if out_dtype is None else out_dtype
     _check(xh, dt, a_log, b_mat, c_mat, d_skip, out_dtype)
     bsz, s, h, p = xh.shape

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import sharding
 from . import layers, lm
 from .types import ModelConfig
 
@@ -110,8 +111,9 @@ def _enc_block(p: EncBlock, x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     h = layers.apply_norm(p.attn_norm, x, cfg)
     x = x + layers.apply_attention(p.attn, h, positions, cfg, causal=False)
+    x = sharding.constrain(x, "activations")
     h = layers.apply_norm(p.mlp_norm, x, cfg)
-    return x + layers.apply_mlp(p.mlp, h)
+    return sharding.constrain(x + layers.apply_mlp(p.mlp, h), "activations")
 
 
 def encode(params: EncDec, frames: torch.Tensor,
@@ -122,7 +124,9 @@ def encode(params: EncDec, frames: torch.Tensor,
     s = frames.shape[1]
     x = frames.to(getattr(torch, cfg.dtype))
     positions = torch.arange(s, device=x.device)
-    x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
+    x = x + sharding.replicated(sinusoid(positions, cfg.d_model).to(x.dtype),
+                                x)
+    x = sharding.constrain(x, "activations")
     for block in params.encoder:
         x = lm._remat(_enc_block, block, x, positions, cfg)
     return layers.apply_norm(params.enc_norm, x, cfg)
@@ -136,7 +140,7 @@ def _dec_block(p: DecBlock, x: torch.Tensor, enc_out: torch.Tensor,
     h = layers.apply_norm(p.cross_norm, x, cfg)
     x = x + layers.apply_cross_attention(p.cross_attn, h, enc_out, cfg)
     h = layers.apply_norm(p.mlp_norm, x, cfg)
-    return x + layers.apply_mlp(p.mlp, h)
+    return sharding.constrain(x + layers.apply_mlp(p.mlp, h), "activations")
 
 
 def _decode_stack(params: EncDec, x: torch.Tensor, enc_out: torch.Tensor,
@@ -153,9 +157,10 @@ def _decoder_out(params: EncDec, batch: dict,
     ``batch["dec_tokens"]``: the final decoder hidden states [B,T,D]."""
     enc_out = encode(params, batch["frames"], cfg)
     tokens = batch["dec_tokens"]
-    x = F.embedding(tokens.long(), params.embed)
+    x = F.embedding(tokens.long(), sharding.gathered(params.embed))
     positions = torch.arange(tokens.shape[1], device=x.device)
-    x = x + sinusoid(positions, cfg.d_model).to(x.dtype)
+    x = x + sharding.replicated(sinusoid(positions, cfg.d_model).to(x.dtype),
+                                x)
     return _decode_stack(params, x, enc_out, cfg)
 
 

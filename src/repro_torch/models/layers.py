@@ -18,7 +18,10 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from .. import sharding
 from ..kernels.flash_attention import ops as flash_ops
 from .types import ModelConfig
 
@@ -85,7 +88,8 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [..., S, D] with D even; positions: broadcastable to [..., S]."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)          # [D/2]
+    freqs = sharding.replicated(rope_freqs(x.shape[-1], theta, x.device), x)
+    positions = sharding.replicated(positions, x)
     ang = positions[..., None].float() * freqs                # [..., S, D/2]
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
@@ -212,8 +216,8 @@ def cache_attention(q, k_cache, v_cache, k_positions, q_positions,
     qg = q.reshape(b, hkv, rep * c, d)
     s = torch.matmul(qg.float(), k_cache.float().transpose(-1, -2))
     s = s.reshape(b, hkv, rep, c, s_len) / math.sqrt(d)
-    kp = k_positions[:, None, None, None, :]       # [1|B,1,1,1,S]
-    qp = q_positions[:, None, None, :, None]       # [1|B,1,1,C,1]
+    kp = sharding.replicated(k_positions, q)[:, None, None, None, :]
+    qp = sharding.replicated(q_positions, q)[:, None, None, :, None]
     valid = (kp >= 0) & (kp <= qp)
     if window is not None:
         valid &= qp - kp < window
@@ -244,8 +248,9 @@ def reference_attention(q, k, v, *, causal: bool, window: int | None = None):
     qg = q.reshape(b, hkv, rep, sq, d)
     scores = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2))
     scores = scores / math.sqrt(d)
-    mask = _chunk_mask(torch.arange(sq, device=q.device),
-                       torch.arange(sk, device=q.device), causal, window)
+    mask = sharding.replicated(
+        _chunk_mask(torch.arange(sq, device=q.device),
+                    torch.arange(sk, device=q.device), causal, window), q)
     scores = scores.masked_fill(~mask, -math.inf)
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(torch.isnan(probs), 0.0, probs)  # fully masked rows
@@ -354,12 +359,36 @@ def blocked_attention(q, k, v, *, causal: bool, window: int | None = None,
     hkv, sk = k.shape[1], k.shape[2]
     assert sq % q_chunk == 0 and sk % k_chunk == 0, (sq, q_chunk, sk, k_chunk)
     if hkv != hq:
-        k = k.repeat_interleave(hq // hkv, dim=1)
+        k = sharding.constrain(k, "attn_kv_rep")   # replicated over model
+        v = sharding.constrain(v, "attn_kv_rep")
+        k = k.repeat_interleave(hq // hkv, dim=1)  # shard-local expansion
         v = v.repeat_interleave(hq // hkv, dim=1)
+    q = sharding.constrain(q, "attn_heads")
+    k = sharding.constrain(k, "attn_heads")
+    v = sharding.constrain(v, "attn_heads")
     if triangular:
         k_chunk = q_chunk
-    return _BlockedAttention.apply(q, k, v, causal, window, q_chunk, k_chunk,
-                                   q_offset)
+    args = (causal, window, q_chunk, k_chunk, q_offset)
+    if not isinstance(q, DTensor):
+        return _BlockedAttention.apply(q, k, v, *args)
+    return _local_heads(q, lambda q, k, v: _BlockedAttention.apply(
+        q, k, v, *args), q, k, v)
+
+
+def _local_heads(like: DTensor, fn, *tensors):
+    """``fn`` on each rank's shards of ``tensors`` [B, H, ...] (DTensors),
+    all laid out as ``like``: batch and heads may be sharded, nothing else
+    (a sequence shard would need a distributed softmax).  The kernel
+    wrappers take plain tensors only; ``local_map`` hands them the local
+    shards, forward and backward, and wraps the result back."""
+    pl = list(like.placements)
+    for p in pl:
+        if isinstance(p, Partial) or (isinstance(p, Shard) and p.dim > 1):
+            raise ValueError(f"attention over {pl}: only the batch and head "
+                             f"dims may be sharded")
+    return local_map(fn, out_placements=pl, in_placements=(pl,) * len(tensors),
+                     device_mesh=like.device_mesh,
+                     redistribute_inputs=True)(*tensors)
 
 
 def apply_attention(p: Attention, x: torch.Tensor, positions: torch.Tensor,

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import sharding
 from . import layers, moe, ssm
 from .types import LayerSpec, ModelConfig
 
@@ -122,7 +123,10 @@ def _apply_block(block: Block, x: torch.Tensor, positions: torch.Tensor,
                                    impl=attn_impl)
     else:
         h = ssm.apply_ssm(block.ssm, h, cfg)
-    return _ffn(block, x + h, cfg)
+    x, aux = _ffn(block, sharding.constrain(x + h, "activations"), cfg)
+    if block.ffn_norm is not None:
+        x = sharding.constrain(x, "activations")
+    return x, aux
 
 
 def _remat(fn, *args):
@@ -143,7 +147,11 @@ def forward(params: LM, batch: dict, cfg: ModelConfig,
     if cfg.input_mode == "embeddings" and "embeds" in batch:
         x = batch["embeds"].to(params.embed.dtype)
     else:
-        x = F.embedding(batch["tokens"], params.embed)
+        # a DTensor table is gathered whole for the lookup: DTensor's
+        # vocab-parallel lookup leaves a masked partial sum that its
+        # backward cannot take a gradient back to
+        x = F.embedding(batch["tokens"], sharding.gathered(params.embed))
+    x = sharding.constrain(x, "activations")
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for block in params.blocks:
@@ -155,9 +163,11 @@ def forward(params: LM, batch: dict, cfg: ModelConfig,
 
 def _ce_chunk(xc: torch.Tensor, w_head: torch.Tensor,
               lc: torch.Tensor) -> torch.Tensor:
-    logits = (xc @ w_head).float()
-    gold = logits.gather(-1, lc[..., None].long())[..., 0]
-    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+    logits = sharding.constrain((xc @ w_head).float(), "logits")
+    # the gold logit is read from the whole row: DTensor's vocab-parallel
+    # gather (a masked partial sum) breaks when the chunk is recomputed
+    gold = sharding.gathered(logits).gather(-1, lc[..., None].long())
+    return (torch.logsumexp(logits, dim=-1, keepdim=True) - gold).sum()
 
 
 def chunked_cross_entropy(x: torch.Tensor, w_head: torch.Tensor,
@@ -281,7 +291,7 @@ def decode_step(params: LM, tokens: torch.Tensor, cache: dict,
     """One lockstep serving step: tokens [B,1] -> (logits [B,V] float32,
     cache), the cache updated in place and its position advanced."""
     pos = cache["pos"]
-    x = F.embedding(tokens.long(), params.embed)          # [B,1,D]
+    x = F.embedding(tokens.long(), sharding.gathered(params.embed))
     for block, c in zip(params.blocks, cache["layers"]):
         h = layers.apply_norm(block.mixer_norm, x, cfg)
         if block.attn is not None:
@@ -291,5 +301,6 @@ def decode_step(params: LM, tokens: torch.Tensor, cache: dict,
         x, _ = _ffn(block, x + h, cfg)
     x = layers.apply_norm(params.final_norm, x, cfg)
     logits = (x[:, 0, :] @ _lm_head(params, cfg)).float()
+    logits = sharding.constrain(logits, "decode_logits")
     cache["pos"] = pos + 1
     return logits, cache

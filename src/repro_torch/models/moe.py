@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import sharding
 from ..kernels.moe_dispatch import ops as moe_ops
 from . import layers
 from .types import ModelConfig
@@ -141,10 +142,14 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
     xt = tokens.reshape(g, gs, d)
     probs, top_i, top_w, slot = _route(p, xt, cfg)
 
+    # tokens -> expert shards: the slots are [E, G, C] major to minor, the
+    # reference's expert_tokens layout
     xe = _Dispatch.apply(tokens.to(torch.bfloat16), slot, e * g * cap)
+    xe = sharding.constrain(xe.reshape(e, g, cap, d), "expert_tokens")
     xe = xe.reshape(e, g * cap, d).to(p.wi_gate.dtype)
     h = F.silu(torch.bmm(xe, p.wi_gate)) * torch.bmm(xe, p.wi_up)
-    ye = torch.bmm(h, p.wo).reshape(e * g * cap, d)
+    ye = sharding.constrain(torch.bmm(h, p.wo).reshape(e, g, cap, d),
+                            "expert_tokens").reshape(e * g * cap, d)
     y = _Combine.apply(ye, slot,
                        top_w.reshape(n_tok, -1).to(torch.bfloat16))
     if p.shared is not None:

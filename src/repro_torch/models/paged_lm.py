@@ -32,7 +32,10 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
+from .. import sharding
 from . import layers
 from .lm import LM, _ffn, _lm_head
 from .types import ModelConfig
@@ -153,7 +156,11 @@ def _write_paged(pool, pid, off, vals, mask) -> None:
     Masked-out rows are diverted to the null page by the caller and write
     back the value already there (gathered before the write), so colliding
     diverted writes all carry identical data and the scatter stays
-    deterministic on any device."""
+    deterministic on any device.  On a mesh the pool is replicated and
+    each rank writes the same rows into its own copy (DTensor has no
+    sharding rule for ``index_put_`` in every torch the port runs on)."""
+    pool = sharding.local(pool)
+    pid, off, vals, mask = (sharding.full(t) for t in (pid, off, vals, mask))
     cur = pool[pid, off]
     pool.index_put_((pid, off), torch.where(mask[:, None, None], vals, cur))
 
@@ -173,7 +180,7 @@ def _attn_decode(p, x, c, cache, active, cfg: ModelConfig,
         k = layers.apply_rope(k, pp, cfg.rope_theta)
     k_tok = k[:, :, 0, :]                                # [B,Hkv,Dh]
     v_tok = v[:, :, 0, :]
-    b_ids = torch.arange(b, device=x.device)
+    b_ids = sharding.replicated(torch.arange(b, device=x.device), lengths)
     lengths_l = lengths.long()
     if "k_pages" in c:
         kp, vp = c["k_pages"], c["v_pages"]
@@ -188,9 +195,8 @@ def _attn_decode(p, x, c, cache, active, cfg: ModelConfig,
             # the paged-attention kernel reads GQA natively (kv head =
             # q head // rep, the reference's jnp.repeat order); lengths + 1
             # counts the token just written
-            from repro_torch.kernels.paged_attention import ops as paged_ops
-            y = paged_ops.paged_attention(q[:, :, 0, :].contiguous(), kp, vp,
-                                          table, lengths + 1)[:, :, None, :]
+            y = _paged_read(q[:, :, 0, :].contiguous(), kp, vp, table,
+                            lengths + 1)[:, :, None, :]
             return layers._merge_heads(p, y)
         tl = table.long()
         k_read = kp[tl].reshape(b, -1, dims.n_kv, dims.d_head).transpose(1, 2)
@@ -207,6 +213,29 @@ def _attn_decode(p, x, c, cache, active, cfg: ModelConfig,
         q, k_read, v_read, torch.arange(s_len, device=x.device)[None, :],
         lengths_l[:, None])
     return layers._merge_heads(p, y)
+
+
+def _paged_read(q, kp, vp, table, lengths):
+    """The paged-attention kernel (its plain version on CPU tensors).  On
+    DTensors (a mesh) it runs in a ``local_map`` region on replicated
+    operands: each rank reads every slot's pages for all heads.  Query
+    heads sharded over ``model`` would need each shard's kv heads picked
+    from the pool, which is not ported: that raises."""
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    if not isinstance(q, DTensor):
+        return paged_ops.paged_attention(q, kp, vp, table, lengths)
+    mesh = q.device_mesh
+    for i, pl in enumerate(q.placements):
+        if isinstance(pl, Shard) and pl.dim == 1 and mesh.size(i) > 1:
+            raise NotImplementedError(
+                f"paged decode attention with query heads sharded over "
+                f"mesh dim {mesh.mesh_dim_names[i]!r} of size "
+                f"{mesh.size(i)}: the per-shard kv-head read is not ported; "
+                f"serve under a mesh whose 'model' axis is 1")
+    rep = [Replicate()] * mesh.ndim
+    return local_map(paged_ops.paged_attention, out_placements=rep,
+                     in_placements=(rep,) * 5, device_mesh=mesh,
+                     redistribute_inputs=True)(q, kp, vp, table, lengths)
 
 
 def _attn_prefill(p, x, c, cache, slot: int, positions, write_mask,
@@ -231,8 +260,8 @@ def _attn_prefill(p, x, c, cache, slot: int, positions, write_mask,
         table_row = cache["page_table"][slot].long()     # [P]
         lp = (positions // page).clamp(0, table_row.shape[0] - 1)
         pid = torch.where(write_mask, table_row[lp], NULL_PAGE)
-        off = torch.where(write_mask, positions % page,
-                          torch.arange(chunk, device=x.device) % page)
+        off = torch.where(write_mask, positions % page, sharding.replicated(
+            torch.arange(chunk, device=x.device) % page, positions))
         _write_paged(kp, pid, off, k[0].transpose(0, 1), write_mask)
         _write_paged(vp, pid, off, v[0].transpose(0, 1), write_mask)
         k_read = kp[table_row].reshape(1, -1, dims.n_kv,
@@ -280,15 +309,20 @@ def serve_decode_step(params: LM, tokens, active, temps, key_data, cache,
     Returns ``(next_tokens [B] int32, logits [B,V] float32 | None, cache)``
     with ``cache`` updated in place.
     """
-    device = cache["lengths"].device
-    tokens = torch.as_tensor(tokens, device=device).long()
-    active = torch.as_tensor(active, device=device).bool()
-    x = params.embed[tokens[:, None]]                     # [B,1,D]
+    lengths = cache["lengths"]
+    device = lengths.device
+    tokens = sharding.replicated(
+        torch.as_tensor(tokens, device=device).long(), lengths)
+    active = sharding.replicated(
+        torch.as_tensor(active, device=device).bool(), lengths)
+    x = sharding.gathered(params.embed)[tokens[:, None]]  # [B,1,D]
     for block, c in zip(params.blocks, cache["layers"]):
         x = _block(block, x, lambda pa, h, c=c: _attn_decode(
             pa, h, c, cache, active, cfg, attn_read), cfg)
     x = layers.apply_norm(params.final_norm, x, cfg)
     logits = (x[:, 0, :] @ _lm_head(params, cfg)).float()
+    # the sampler runs on the whole logits on every rank
+    logits = sharding.full(sharding.constrain(logits, "decode_logits"))
     if sampling:
         next_tokens = _sample(logits, temps, key_data)
     else:
@@ -312,24 +346,25 @@ def serve_prefill_chunk(params: LM, tokens, n_valid: int, slot: int, temp,
     logits (only meaningful on the final chunk of a prompt); ``cache`` is
     updated in place.
     """
-    device = cache["lengths"].device
-    tokens = torch.as_tensor(tokens, device=device).long()
+    lengths = cache["lengths"]
+    device = lengths.device
+    tokens = sharding.replicated(
+        torch.as_tensor(tokens, device=device).long(), lengths)
     n_valid, slot = int(n_valid), int(slot)
     chunk = tokens.shape[0]
-    lengths = cache["lengths"]
-    ar = torch.arange(chunk, device=device)
+    ar = sharding.replicated(torch.arange(chunk, device=device), lengths)
     positions = lengths[slot].long() + ar
     write_mask = ar < n_valid
-    x = params.embed[tokens[None, :]]                     # [1,C,D]
+    x = sharding.gathered(params.embed)[tokens[None, :]]  # [1,C,D]
     for block, c in zip(params.blocks, cache["layers"]):
         x = _block(block, x, lambda pa, h, c=c: _attn_prefill(
             pa, h, c, cache, slot, positions, write_mask, cfg), cfg)
     x = layers.apply_norm(params.final_norm, x, cfg)
     last = x[0, min(max(n_valid - 1, 0), chunk - 1)]
-    logits = (last @ _lm_head(params, cfg)).float()
+    logits = sharding.full((last @ _lm_head(params, cfg)).float())
     if sampling:
         token = _sample(logits, temp, key_data)
     else:
         token = logits.argmax().to(torch.int32)
-    lengths[slot] += n_valid
+    sharding.local(lengths)[slot] += n_valid
     return token, (logits if return_logits else None), cache

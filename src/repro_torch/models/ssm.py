@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import sharding
 from ..kernels.ssd_scan import ops as ssd_ops
 from ..kernels.ssd_scan import ref as ssd_ref
 from . import layers
@@ -119,10 +120,29 @@ def ssd_chunked(xh, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int):
     xh [B,S,H,P] head inputs; dt [B,S,H] softplus'd step sizes; a_log [H]
     (A = -exp(a_log)); b_mat, c_mat [B,S,N]; d_skip [H].  Returns y
     [B,S,H,P] float32.  The reference also returns the final state, which
-    none of its model paths uses; decode has its own recurrence."""
+    none of its model paths uses; decode has its own recurrence.
+
+    The reference pins the head sharding of its chunk-major stacks
+    (``ssd_xs5`` on x, ``ssd_xs4`` on dt and the log decay, which is dt
+    times a per-head constant) and of each chunk's y; here the same
+    constraints hold x and dt in that layout and y as a whole.  Its
+    ``ssd_state`` constraints hold the state carried between chunks,
+    which the port's scan keeps inside the kernel."""
     s = xh.shape[1]
-    assert s % min(chunk, s) == 0, (s, chunk)
-    return _SSDChunked.apply(xh, dt, a_log, b_mat, c_mat, d_skip, chunk)
+    q = min(chunk, s)
+    assert s % q == 0, (s, chunk)
+    xh = _constrain_chunks(xh, q, "ssd_xs5")
+    dt = _constrain_chunks(dt, q, "ssd_xs4")
+    y = _SSDChunked.apply(xh, dt, a_log, b_mat, c_mat, d_skip, chunk)
+    return sharding.constrain(y, "ssd_y")
+
+
+def _constrain_chunks(t: torch.Tensor, q: int, kind: str) -> torch.Tensor:
+    """``constrain`` on t [B,S,...] seen in the reference's chunk-major
+    layout [S/q, B, q, ...]; returns t's own layout."""
+    b, s = t.shape[:2]
+    c = t.reshape(b, s // q, q, *t.shape[2:]).transpose(0, 1)
+    return sharding.constrain(c, kind).transpose(0, 1).reshape(t.shape)
 
 
 def _project(p: SSM, x: torch.Tensor):

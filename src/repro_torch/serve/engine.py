@@ -44,11 +44,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, sharding
 from repro_torch.launch.steps import build_serve_engine_steps
 from repro_torch.models import api
 from repro_torch.models.paged_lm import serve_geometry
 from repro_torch.runtime import chaos as chaos_mod
+from repro_torch.runtime.elastic import reshard
+from repro_torch.sharding.rules import MeshRules
 from repro_torch.runtime.fault_tolerance import StragglerWatchdog
 
 from .metrics import EngineMetrics, RequestMetrics
@@ -77,10 +79,14 @@ class ServeEngine:
                  watchdog: Optional[StragglerWatchdog] = None,
                  chaos: Optional[chaos_mod.ChaosPlan] = None,
                  clock: Callable[[], float] = time.monotonic,
+                 rules: Optional[MeshRules] = None,
                  device=None):
         """``params`` is the port's LM, already on ``device`` (CUDA when
         None).  ``attn_read`` defaults to ``"kernel"`` for the paged
-        backend and ``"gather"`` for the dense one."""
+        backend and ``"gather"`` for the dense one.  With ``rules`` the
+        steps run on the rules' mesh: ``params`` is placed there by
+        ``param_specs`` (in place: its parameters become DTensors) and the
+        cache lives there, replicated."""
         self.device = resolve_device(device)
         ok, why = api.serve_supported(cfg)
         if not ok:
@@ -91,7 +97,6 @@ class ServeEngine:
         if attn_read is None:
             attn_read = "kernel" if backend == "paged" else "gather"
         self.cfg = cfg
-        self.params = params
         self.backend = backend
         self.n_slots = slots
         self.max_len = max_len
@@ -109,10 +114,13 @@ class ServeEngine:
         self.sched = Scheduler(slots=slots, max_len=max_len, pool=self.pool,
                                prefill_chunk=prefill_chunk,
                                max_queue=max_queue)
+        if rules is not None:
+            params = reshard(params, rules, rules.param_specs(params))
+        self.params = params
         self.steps = build_serve_engine_steps(
             cfg, slots=slots, max_len=max_len, backend=backend,
             page_size=page_size, n_pages=n_pages, attn_read=attn_read,
-            return_logits=capture_logits, device=self.device)
+            return_logits=capture_logits, rules=rules, device=self.device)
         self.cache = self.steps.init_cache()
         self.watchdog = watchdog if watchdog is not None else \
             StragglerWatchdog(window=32, threshold=3.0, min_samples=8)
@@ -169,13 +177,14 @@ class ServeEngine:
         lens = np.zeros((self.n_slots,), np.int32)
         for r in self.sched.live():
             lens[r.slot] = r.cache_len
-        self.cache["lengths"].copy_(torch.from_numpy(lens))
+        sharding.local(self.cache["lengths"]).copy_(torch.from_numpy(lens))
         if self.backend == "paged":
             table = np.zeros((self.n_slots, self.pages_per_seq), np.int32)
             for r in self.sched.live():
                 owned = self.pool.owned(r.rid)
                 table[r.slot, :len(owned)] = owned
-            self.cache["page_table"].copy_(torch.from_numpy(table))
+            sharding.local(self.cache["page_table"]).copy_(
+                torch.from_numpy(table))
 
     # -- lifecycle helpers ---------------------------------------------------
     def _retire(self, req: Request, state: RequestState, now: float,
