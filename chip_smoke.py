@@ -147,16 +147,40 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     ``param_specs``, the paged pools replicated on the mesh), 4 greedy
     requests of phase 4's first 4 prompts, 32 new tokens each: equal
     tokens, paged launches = decode steps x 28 with rules, 0 page leaks;
-    decode-step ms both ways (the gap is DTensor's host dispatch).  The
-    group is destroyed at the end of the phase.
+    decode-step ms both ways (the gap is DTensor's host dispatch);
+18. in the same group and mesh, every other model family through the
+    same entry points, each run on the mesh against the plain run from
+    the same seed, with the launch counters of its kernels set to 0 just
+    before and read just after each run on the mesh (in training each
+    kernel launches twice a layer a step: the forward and its per-layer
+    recompute): full-width dbrx-132b at phase 11's 8 layers through the
+    ``ServeEngine`` without and with rules on phase 4's first 4 prompts
+    (equal greedy tokens; dispatch = combine = 8 x (decode steps +
+    prefill chunks) and paged = decode steps x 8 on the mesh, the paged
+    read and the MoE regions in ``local_map``); dbrx-132b at 1 layer and
+    one microbatch, 2 ``build_train_step`` steps at B 1 x S 2,048 against
+    2 plain ``train_step``s (losses within 1e-4 relative, leaves compared
+    by digests of their bits computed on the card); full-width, full-depth
+    mamba2-2.7b ``build_step`` prefill at B 4 x S 4,096 (bit-identical
+    logits, exactly 64 ``ssd_scan`` launches, all on the mma route), 8
+    lockstep decode steps (bit-identical) and 2 training steps at the
+    largest of B 4, 2, 1 x S 4,096 whose plain step fits (as dbrx's);
+    jamba-1.5-large-398b at full width cut to its first 4 layers (SSM,
+    attention and MoE blocks) prefill at B 2 x S 4,096 and 8 lockstep
+    decode steps (bit-identical); whisper-small at full width and depth,
+    32 ``build_step`` decode steps on phase 14's B 8 x 4,096 frames'
+    cross K/V, teacher-forced with the plain run's greedy tokens
+    (bit-identical).  The group is destroyed at the end of the phase.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -222,6 +246,15 @@ ALLOC_B, ALLOC_S, ALLOC_BUDGET = 8, 4_096, 16
 CHAOS_SEED = 16
 # phase 17: sharded training steps, and greedy requests through the engine
 SHARDED_STEPS, SHARDED_REQUESTS = 2, 4
+# phase 18: dbrx trains one layer at one microbatch (its 4 would leave
+# B 1 nothing to split); mamba2 trains at the largest batch of these whose
+# plain step fits; jamba's first 4 layers (a period of 4 keeps its
+# pattern's first 4 positions) hold its SSM, attention and MoE blocks
+DBRX_TRAIN_B, DBRX_TRAIN_S = 1, 2_048
+MAMBA_TRAIN_BATCHES, MAMBA_TRAIN_S = (4, 2, 1), 4_096
+JAMBA_LAYERS, JAMBA_B, JAMBA_S = 4, 2, 4_096
+FAMILY_DECODE_STEPS = 8
+DIGEST_CHUNK = 2**24
 
 
 def card_line() -> str:
@@ -2447,13 +2480,16 @@ def sharded_train(cfg, rules, sharded: bool) -> tuple[list, list, list]:
     return losses, ms, leaves
 
 
-def sharded_serve(cfg, params, prompts, rules) -> dict:
+def sharded_serve(cfg, params, prompts, rules, counters=None) -> dict:
     """Greedy requests through the engine (with ``rules``: params placed
-    on the mesh in place, cache replicated there); counters set to 0 just
-    before and read just after the measured run."""
+    on the mesh in place, cache replicated there); the launch counters
+    (paged attention's when None) set to 0 just before and read just
+    after the measured run."""
     from repro_torch.kernels.paged_attention import paged_attention as kernel
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.scheduler import RequestState
+
+    counters = counters or {"paged_attention": kernel.paged_attention}
 
     kw = dict(slots=8, max_len=512, page_size=16, prefill_chunk=64,
               attn_read="kernel", rules=rules)
@@ -2464,7 +2500,8 @@ def sharded_serve(cfg, params, prompts, rules) -> dict:
     del warm
     eng = ServeEngine(cfg, params, **kw)
     torch.cuda.synchronize()
-    kernel.paged_attention.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     reqs = [eng.submit(p, max_new_tokens=32) for p in prompts]
     step_ms = {"decode": [], "prefill": []}
     while eng.sched.has_work():
@@ -2475,7 +2512,7 @@ def sharded_serve(cfg, params, prompts, rules) -> dict:
         torch.cuda.synchronize()
         kind = "decode" if eng.metrics.decode_steps > before else "prefill"
         step_ms[kind].append((time.monotonic() - s0) * 1e3)
-    launches = kernel.paged_attention.launches
+    launches = {name: fn.launches for name, fn in counters.items()}
     eng.assert_no_leaks()
     for r in reqs:
         if r.state is not RequestState.FINISHED or len(r.out_tokens) != 32:
@@ -2487,11 +2524,13 @@ def sharded_serve(cfg, params, prompts, rules) -> dict:
             "dtensor": type(eng.params.embed).__name__}
 
 
-def phase_sharded(cfg) -> dict:
-    """Phase 17: the sharding layer on a one-rank NCCL mesh (1, 1)."""
+@contextlib.contextmanager
+def one_rank_mesh():
+    """A one-rank NCCL group (a ``FileStore``, no TCP port) and the rules
+    of phases 17-18 over ``make_host_mesh(1, 1)``; the group is destroyed
+    on the way out."""
     import torch.distributed as dist
 
-    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.sharding.rules import MeshRules
 
@@ -2510,71 +2549,502 @@ def phase_sharded(cfg) -> dict:
               f"{rules.mesh.mesh_dim_names} {tuple(rules.mesh.shape)} on "
               f"{rules.mesh.device_type} in {time.monotonic() - t0:.2f} s",
               flush=True)
-        fa.flash_attention.launches = 0
-        losses, ms, leaves = sharded_train(cfg, rules, sharded=True)
-        flash = fa.flash_attention.launches
-        plain_losses, plain_ms, plain_leaves = sharded_train(cfg, rules,
-                                                             sharded=False)
-        want = SHARDED_STEPS * cfg.n_layers * 2
-        if flash != want:
-            raise AssertionError(f"flash_attention launched {flash} times in "
-                                 f"{SHARDED_STEPS} sharded steps; want {want}")
-        for a, b in zip(losses, plain_losses):
-            if not (math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
-                raise AssertionError(f"sharded losses {losses} vs plain "
-                                     f"{plain_losses}: not within 1e-4")
-        same = [bits_equal(a, b) for a, b in zip(leaves, plain_leaves)]
-        worst = max(float((a.float() - b.float()).abs().max())
-                    for a, b in zip(leaves, plain_leaves))
-        del leaves, plain_leaves
-        print(f"phase 17: {SHARDED_STEPS} steps of {cfg.name} at B "
-              f"{TRAIN_B} x {TRAIN_S} through build_train_step on the mesh "
-              f"(state by state_specs) vs plain train_step, seed 0: losses "
-              f"{losses} vs {plain_losses}, bit-identical "
-              f"{losses == plain_losses}; leaves bit-identical "
-              f"{sum(same)}/{len(same)}, largest leaf difference {worst!r}; "
-              f"step ms sharded {[round(x, 1) for x in ms]} vs plain "
-              f"{[round(x, 1) for x in plain_ms]}; flash_attention launches "
-              f"{flash} = {SHARDED_STEPS} steps x {cfg.n_layers} layers x 2; "
-              f"{card_line()}", flush=True)
-
-        rng = np.random.default_rng(0)          # phase 4's prompts
-        lens = rng.integers(32, 385, size=12)
-        prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
-                   for n in lens][:SHARDED_REQUESTS]
-        params = api_init(cfg)
-        plain = sharded_serve(cfg, params, prompts, None)
-        mesh = sharded_serve(cfg, params, prompts, rules)
-        del params
-        torch.cuda.empty_cache()
-        if mesh["tokens"] != plain["tokens"]:
-            raise AssertionError(f"greedy tokens on the mesh {mesh['tokens']} "
-                                 f"!= plain {plain['tokens']}")
-        want = mesh["decode_steps"] * cfg.n_layers
-        if mesh["launches"] != want or mesh["dtensor"] != "DTensor":
-            raise AssertionError(f"paged launches {mesh['launches']} != "
-                                 f"{want} on the mesh ({mesh['dtensor']} "
-                                 f"params)")
-        print(f"phase 17: ServeEngine with rules ({mesh['dtensor']} params "
-              f"by param_specs, replicated pools) vs without: "
-              f"{SHARDED_REQUESTS} greedy requests of {lens[:4].tolist()} "
-              f"tokens, 32 new each: tokens equal; decode-step ms mean "
-              f"{statistics.mean(mesh['decode_ms']):.3f} (median "
-              f"{statistics.median(mesh['decode_ms']):.3f}) vs plain "
-              f"{statistics.mean(plain['decode_ms']):.3f} (median "
-              f"{statistics.median(plain['decode_ms']):.3f}) over "
-              f"{len(mesh['decode_ms'])} steps; prefill-chunk ms mean "
-              f"{statistics.mean(mesh['prefill_ms']):.3f} vs "
-              f"{statistics.mean(plain['prefill_ms']):.3f}; paged launches "
-              f"{mesh['launches']} = {mesh['decode_steps']} decode steps x "
-              f"{cfg.n_layers}; page leaks 0; {card_line()}", flush=True)
-        return {"flash": flash, "paged": mesh["launches"],
-                "train_ms": ms, "plain_train_ms": plain_ms,
-                "decode_ms": statistics.mean(mesh["decode_ms"]),
-                "plain_decode_ms": statistics.mean(plain["decode_ms"])}
+        yield rules
     finally:
         dist.destroy_process_group()
         shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def phase_sharded(cfg, rules) -> dict:
+    """Phase 17: the sharding layer on a one-rank NCCL mesh (1, 1)."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    fa.flash_attention.launches = 0
+    losses, ms, leaves = sharded_train(cfg, rules, sharded=True)
+    flash = fa.flash_attention.launches
+    plain_losses, plain_ms, plain_leaves = sharded_train(cfg, rules,
+                                                         sharded=False)
+    want = SHARDED_STEPS * cfg.n_layers * 2
+    if flash != want:
+        raise AssertionError(f"flash_attention launched {flash} times in "
+                             f"{SHARDED_STEPS} sharded steps; want {want}")
+    for a, b in zip(losses, plain_losses):
+        if not (math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+            raise AssertionError(f"sharded losses {losses} vs plain "
+                                 f"{plain_losses}: not within 1e-4")
+    same = [bits_equal(a, b) for a, b in zip(leaves, plain_leaves)]
+    worst = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(leaves, plain_leaves))
+    del leaves, plain_leaves
+    print(f"phase 17: {SHARDED_STEPS} steps of {cfg.name} at B "
+          f"{TRAIN_B} x {TRAIN_S} through build_train_step on the mesh "
+          f"(state by state_specs) vs plain train_step, seed 0: losses "
+          f"{losses} vs {plain_losses}, bit-identical "
+          f"{losses == plain_losses}; leaves bit-identical "
+          f"{sum(same)}/{len(same)}, largest leaf difference {worst!r}; "
+          f"step ms sharded {[round(x, 1) for x in ms]} vs plain "
+          f"{[round(x, 1) for x in plain_ms]}; flash_attention launches "
+          f"{flash} = {SHARDED_STEPS} steps x {cfg.n_layers} layers x 2; "
+          f"{card_line()}", flush=True)
+
+    rng = np.random.default_rng(0)          # phase 4's prompts
+    lens = rng.integers(32, 385, size=12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in lens][:SHARDED_REQUESTS]
+    params = api_init(cfg)
+    plain = sharded_serve(cfg, params, prompts, None)
+    mesh = sharded_serve(cfg, params, prompts, rules)
+    del params
+    torch.cuda.empty_cache()
+    if mesh["tokens"] != plain["tokens"]:
+        raise AssertionError(f"greedy tokens on the mesh {mesh['tokens']} "
+                             f"!= plain {plain['tokens']}")
+    paged = mesh["launches"]["paged_attention"]
+    want = mesh["decode_steps"] * cfg.n_layers
+    if paged != want or mesh["dtensor"] != "DTensor":
+        raise AssertionError(f"paged launches {paged} != {want} on the "
+                             f"mesh ({mesh['dtensor']} params)")
+    print(f"phase 17: ServeEngine with rules ({mesh['dtensor']} params "
+          f"by param_specs, replicated pools) vs without: "
+          f"{SHARDED_REQUESTS} greedy requests of {lens[:4].tolist()} "
+          f"tokens, 32 new each: tokens equal; decode-step ms mean "
+          f"{statistics.mean(mesh['decode_ms']):.3f} (median "
+          f"{statistics.median(mesh['decode_ms']):.3f}) vs plain "
+          f"{statistics.mean(plain['decode_ms']):.3f} (median "
+          f"{statistics.median(plain['decode_ms']):.3f}) over "
+          f"{len(mesh['decode_ms'])} steps; prefill-chunk ms mean "
+          f"{statistics.mean(mesh['prefill_ms']):.3f} vs "
+          f"{statistics.mean(plain['prefill_ms']):.3f}; paged launches "
+          f"{paged} = {mesh['decode_steps']} decode steps x "
+          f"{cfg.n_layers}; page leaks 0; {card_line()}", flush=True)
+    return {"flash": flash, "paged": paged,
+            "train_ms": ms, "plain_train_ms": plain_ms,
+            "decode_ms": statistics.mean(mesh["decode_ms"]),
+            "plain_decode_ms": statistics.mean(plain["decode_ms"])}
+
+
+def free_card() -> None:
+    """Return freed tensors to the card: an engine's reference cycles keep
+    a model's weights alive until the collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kernel_counters() -> dict:
+    """The launch counter of every kernel phase 18's paths run, by the
+    kernels line's names."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as moe
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    return {"paged_attention": pa.paged_attention,
+            "flash_attention": fa.flash_attention,
+            "moe_dispatch": moe.dispatch, "moe_combine": moe.combine,
+            "ssd_scan": ssd.ssd_scan}
+
+
+class Launches:
+    """Counters set to 0 on entry and read on exit (``.n``, by name); the
+    SSD kernel's launches by route beside (``.routes``).  Every read is
+    added to ``total``, the phase's sum by kernel."""
+
+    def __init__(self, total: dict):
+        self.total = total
+
+    def __enter__(self):
+        self.counters = kernel_counters()
+        for fn in self.counters.values():
+            fn.launches = 0
+        self.counters["ssd_scan"].route_launches.update(simt=0, mma=0)
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.n = {k: fn.launches for k, fn in self.counters.items()}
+        self.routes = dict(self.counters["ssd_scan"].route_launches)
+        for k, v in self.n.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return False
+
+    def expect(self, what: str, **want) -> None:
+        """Every counter named in ``want`` at its value, the rest 0."""
+        full = {k: want.get(k, 0) for k in self.n}
+        if self.n != full:
+            raise AssertionError(f"{what}: launches {self.n} != {full}")
+
+
+def leaf_digest(t: torch.Tensor, weights: torch.Tensor) -> int:
+    """A digest of a leaf's bits computed on the card: its elements as
+    integers of their width times fixed random int64 weights, summed
+    mod 2**64 in chunks (integer sums, so the order does not matter)."""
+    from repro_torch import sharding
+
+    bits = sharding.full(t).detach().contiguous().reshape(-1)
+    bits = bits.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                      8: torch.int64}[bits.element_size()])
+    total = torch.zeros((), dtype=torch.int64, device=bits.device)
+    for i in range(0, bits.numel(), weights.numel()):
+        chunk = bits[i:i + weights.numel()]
+        total += (chunk.long() * weights[:chunk.numel()]).sum()
+    return int(total)
+
+
+def digest_weights() -> torch.Tensor:
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    return torch.randint(-2**62, 2**62, (DIGEST_CHUNK,), generator=gen,
+                         dtype=torch.int64, device="cuda")
+
+
+def family_train(cfg, shape, rules, sharded: bool, total: dict) -> dict:
+    """2 steps of ``shape`` from seed 0 through ``build_train_step`` on
+    the mesh (``sharded``) or the plain ``train_step``: losses, step ms,
+    launches on the mesh, peak memory and a digest of every leaf of the
+    final state (computed on the card, then the state is freed)."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch import steps, train_lm
+    from repro_torch.runtime.elastic import reshard_state
+
+    opt = steps.make_optimizer(cfg)
+    state = train_lm.init_state(cfg, opt, "cuda", seed=0)
+    if sharded:
+        # placed before the first step, so the plain moments are dropped
+        # rather than held beside their DTensors through it
+        state = reshard_state(state, rules)
+        step_fn = steps.build_train_step(cfg, shape, rules).fn
+    else:
+        def step_fn(state, batch):
+            return steps.train_step(state, batch, cfg, opt, device="cuda")
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Launches(total if sharded else {}) as n:
+        for i in range(SHARDED_STEPS):
+            batch = synthetic_batch(cfg, shape, seed=0, step=i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(metrics["loss"].item())
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    weights = digest_weights()
+    digests = [leaf_digest(t, weights) for t in state_leaves(state)]
+    del state, metrics, weights
+    free_card()
+    return {"losses": losses, "ms": ms, "launches": n.n, "routes": n.routes,
+            "peak": peak, "digests": digests}
+
+
+def train_gates(cfg, shape, mesh: dict, plain: dict, **want) -> str:
+    """Phase 18's training gates: each sharded loss within 1e-4 relative
+    of the plain one; launches on the mesh as ``want`` (per layer a step,
+    twice: the forward and its recompute).  Returns the line's text."""
+    for a, b in zip(mesh["losses"], plain["losses"]):
+        if not (math.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+            raise AssertionError(f"{cfg.name}: sharded losses "
+                                 f"{mesh['losses']} vs plain "
+                                 f"{plain['losses']}: not within 1e-4")
+    full = {k: want.get(k, 0) * SHARDED_STEPS * cfg.n_layers * 2
+            for k in mesh["launches"]}
+    if mesh["launches"] != full:
+        raise AssertionError(f"{cfg.name} training on the mesh: launches "
+                             f"{mesh['launches']} != {full}")
+    same = sum(a == b for a, b in zip(mesh["digests"], plain["digests"]))
+    return (f"{SHARDED_STEPS} steps of {cfg.name} ({cfg.n_layers} layers) "
+            f"at B {shape.global_batch} x {shape.seq_len} through "
+            f"build_train_step on the mesh vs plain train_step, seed 0: "
+            f"losses {mesh['losses']} vs {plain['losses']}, bit-identical "
+            f"{mesh['losses'] == plain['losses']}; leaves bit-identical (by "
+            f"digest) {same}/{len(plain['digests'])}; step ms sharded "
+            f"{[round(x, 1) for x in mesh['ms']]} vs plain "
+            f"{[round(x, 1) for x in plain['ms']]}; peak memory "
+            f"{mesh['peak'] / 2**30:.3f} vs {plain['peak'] / 2**30:.3f} GiB; "
+            f"launches {json.dumps(mesh['launches'])} = {SHARDED_STEPS} "
+            f"steps x {cfg.n_layers} layers x 2 (forward and recompute) per "
+            f"kernel's layer; {card_line()}")
+
+
+def lockstep(params, cache, tokens, step_fn) -> list:
+    """Logits of teacher-forced lockstep decode steps: ``tokens`` [n, B, 1]
+    on the card, one a step, through ``step_fn(params, tokens, cache)``."""
+    out = []
+    with torch.no_grad():
+        for tok in tokens:
+            logits, cache = step_fn(params, tok, cache)
+            out.append(logits)
+    return out
+
+
+def plain_lockstep(params, cfg, cache, first, n: int) -> tuple:
+    """``n`` greedy ``api.decode`` steps from ``first`` [B, 1]: (the
+    inputs, [n, B, 1] on the card, and each step's logits)."""
+    from repro_torch.models import api
+
+    toks, logits = [first], []
+    with torch.no_grad():
+        for i in range(n):
+            lo, cache = api.decode(params, toks[-1], cache, cfg)
+            logits.append(lo)
+            if i + 1 < n:
+                toks.append(lo.argmax(-1).to(torch.int32)[:, None])
+    return toks, logits
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    from repro_torch import sharding
+
+    return sharding.full(t)
+
+
+def all_equal(got: list, want: list) -> bool:
+    return len(got) == len(want) and all(
+        bits_equal(whole(a), b) for a, b in zip(got, want))
+
+
+def dbrx_family(rules, total: dict) -> dict:
+    """dbrx-132b at phase 11's depth through the engine without and with
+    rules, then at 1 layer through 2 training steps both ways."""
+    from repro_torch.configs import registry
+    from repro_torch.models.types import ShapeConfig
+
+    cfg = dataclasses.replace(registry.get("dbrx-132b"), n_layers=DBRX_LAYERS)
+    rng = np.random.default_rng(0)          # phase 11's (phase 4's) prompts
+    lens = rng.integers(32, 385, size=12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in lens][:SHARDED_REQUESTS]
+    counters = {k: fn for k, fn in kernel_counters().items()
+                if k in ("paged_attention", "moe_dispatch", "moe_combine")}
+    params = api_init(cfg)
+    plain = sharded_serve(cfg, params, prompts, None, counters)
+    mesh = sharded_serve(cfg, params, prompts, rules, counters)
+    del params
+    free_card()
+    if mesh["tokens"] != plain["tokens"]:
+        raise AssertionError(f"dbrx greedy tokens on the mesh "
+                             f"{mesh['tokens']} != plain {plain['tokens']}")
+    chunks = len(mesh["prefill_ms"])
+    want = {"paged_attention": mesh["decode_steps"] * cfg.n_layers,
+            "moe_dispatch": cfg.n_layers * (mesh["decode_steps"] + chunks),
+            "moe_combine": cfg.n_layers * (mesh["decode_steps"] + chunks)}
+    if mesh["launches"] != want or mesh["dtensor"] != "DTensor":
+        raise AssertionError(f"dbrx on the mesh: launches {mesh['launches']}"
+                             f" != {want} ({mesh['dtensor']} params)")
+    for k, v in mesh["launches"].items():
+        total[k] = total.get(k, 0) + v
+    print(f"phase 18: {cfg.name} ({cfg.n_layers} of 40 layers) ServeEngine "
+          f"with rules vs without, {len(prompts)} greedy requests of "
+          f"{lens[:len(prompts)].tolist()} tokens (phase 11's first), 32 "
+          f"new each: tokens equal; decode-step ms "
+          f"mean {statistics.mean(mesh['decode_ms']):.3f} (median "
+          f"{statistics.median(mesh['decode_ms']):.3f}) vs plain "
+          f"{statistics.mean(plain['decode_ms']):.3f} (median "
+          f"{statistics.median(plain['decode_ms']):.3f}) over "
+          f"{len(mesh['decode_ms'])} steps; prefill-chunk ms mean "
+          f"{statistics.mean(mesh['prefill_ms']):.3f} vs "
+          f"{statistics.mean(plain['prefill_ms']):.3f} over {chunks}; "
+          f"launches on the mesh {json.dumps(mesh['launches'])} (dispatch = "
+          f"combine = {cfg.n_layers} x ({mesh['decode_steps']} decode steps "
+          f"+ {chunks} prefill chunks), paged = decode steps x "
+          f"{cfg.n_layers}); page leaks 0; {card_line()}", flush=True)
+
+    tcfg = dataclasses.replace(registry.get("dbrx-132b"), n_layers=1,
+                               accum_steps=1)
+    shape = ShapeConfig("train_2k", "train", DBRX_TRAIN_S, DBRX_TRAIN_B)
+    train = family_train(tcfg, shape, rules, True, total)
+    plain_train = family_train(tcfg, shape, rules, False, {})
+    print("phase 18: " + train_gates(
+        tcfg, shape, train, plain_train, moe_dispatch=1, moe_combine=1,
+        flash_attention=1), flush=True)
+    return {"decode_ms": statistics.mean(mesh["decode_ms"]),
+            "plain_decode_ms": statistics.mean(plain["decode_ms"]),
+            "train_ms": train["ms"], "plain_train_ms": plain_train["ms"]}
+
+
+def mamba_family(rules, total: dict) -> dict:
+    """Full mamba2-2.7b: ``build_step`` prefill and lockstep decode on the
+    mesh vs plain (params placed in place after the plain runs), then 2
+    training steps both ways."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models.types import ShapeConfig
+
+    cfg = registry.get("mamba2-2.7b")
+    params = api_init(cfg)
+    b, s = 4, 4096
+    batch = {"tokens": np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, s))}
+    first = torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (8, 1)), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        want = api.prefill(params, batch, cfg, device="cuda")
+    toks, ref = plain_lockstep(params, cfg, api.init_cache(cfg, 8, 256),
+                               first, FAMILY_DECODE_STEPS)
+    prefill = steps.build_step(
+        cfg, ShapeConfig("prefill_4k", "prefill", s, b), rules)
+    with Launches(total) as n, torch.no_grad():
+        t0 = time.perf_counter()
+        got = prefill.fn(params, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    n.expect("mamba2 prefill on the mesh", ssd_scan=cfg.n_layers)
+    if n.routes["mma"] != cfg.n_layers or not bits_equal(
+            whole(got), want):
+        raise AssertionError(f"mamba2 prefill on the mesh: routes "
+                             f"{n.routes}, bit-identical "
+                             f"{bits_equal(whole(got), want)}")
+    decode = steps.build_step(cfg, ShapeConfig("decode_256", "decode", 256, 8),
+                              rules)
+    with Launches(total) as nd:
+        out = lockstep(params, api.init_cache(cfg, 8, 256), toks, decode.fn)
+    nd.expect("mamba2 lockstep decode on the mesh")
+    if not all_equal(out, ref):
+        raise AssertionError("mamba2 lockstep decode on the mesh: logits "
+                             "differ from the plain steps'")
+    print(f"phase 18: {cfg.name} ({cfg.n_layers} layers) build_step prefill "
+          f"on the mesh at B {b} x S {s}: logits bit-identical to "
+          f"api.prefill, ssd_scan launches {n.n['ssd_scan']} by route "
+          f"{n.routes}, {prefill_ms:.1f} ms (first call on the mesh); "
+          f"{FAMILY_DECODE_STEPS} build_step lockstep decode steps (8 "
+          f"sequences, greedy inputs of the plain run): logits "
+          f"bit-identical; {card_line()}", flush=True)
+    del params, want, ref, out, got
+    free_card()
+
+    for tb in MAMBA_TRAIN_BATCHES:
+        free_card()
+        shape = ShapeConfig("train_4k", "train", MAMBA_TRAIN_S, tb)
+        try:
+            plain = family_train(cfg, shape, rules, False, {})
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"phase 18: {cfg.name} plain training at B {tb} x "
+                  f"{MAMBA_TRAIN_S} does not fit; trying a smaller batch",
+                  flush=True)
+    free_card()
+    train = family_train(cfg, shape, rules, True, total)
+    print("phase 18: " + train_gates(cfg, shape, train, plain, ssd_scan=1),
+          flush=True)
+    return {"train_ms": train["ms"], "plain_train_ms": plain["ms"],
+            "train_batch": shape.global_batch}
+
+
+def jamba_family(rules, total: dict) -> None:
+    """jamba-1.5-large-398b at full width, its first 4 layers: prefill and
+    lockstep decode on the mesh vs plain, bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models.types import ShapeConfig
+
+    cfg = dataclasses.replace(registry.get("jamba-1.5-large-398b"),
+                              n_layers=JAMBA_LAYERS, period=JAMBA_LAYERS)
+    kinds = {(spec.mixer, spec.ffn) for spec in cfg.pattern()}
+    t0 = time.monotonic()
+    params = api_init(cfg)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    batch = {"tokens": np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (JAMBA_B, JAMBA_S))}
+    first = torch.as_tensor(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (8, 1)), dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        want = api.prefill(params, batch, cfg, device="cuda")
+    toks, ref = plain_lockstep(params, cfg, api.init_cache(cfg, 8, 256),
+                               first, FAMILY_DECODE_STEPS)
+    prefill = steps.build_step(
+        cfg, ShapeConfig("prefill", "prefill", JAMBA_S, JAMBA_B), rules)
+    n_ssm = sum(spec.mixer == "ssm" for spec in cfg.pattern())
+    n_moe = sum(spec.ffn == "moe" for spec in cfg.pattern())
+    with Launches(total) as n, torch.no_grad():
+        got = prefill.fn(params, batch)
+    n.expect("jamba prefill on the mesh", ssd_scan=n_ssm,
+             flash_attention=cfg.n_layers - n_ssm, moe_dispatch=n_moe,
+             moe_combine=n_moe)
+    if not bits_equal(whole(got), want):
+        raise AssertionError("jamba prefill on the mesh: logits differ from "
+                             "api.prefill's")
+    decode = steps.build_step(cfg, ShapeConfig("decode_256", "decode", 256, 8),
+                              rules)
+    with Launches(total) as nd:
+        out = lockstep(params, api.init_cache(cfg, 8, 256), toks, decode.fn)
+    nd.expect("jamba lockstep decode on the mesh",
+              moe_dispatch=n_moe * FAMILY_DECODE_STEPS,
+              moe_combine=n_moe * FAMILY_DECODE_STEPS)
+    if not all_equal(out, ref):
+        raise AssertionError("jamba lockstep decode on the mesh: logits "
+                             "differ from the plain steps'")
+    print(f"phase 18: {cfg.name} at full width, its first {cfg.n_layers} "
+          f"layers (blocks {sorted(kinds)}; {n_params} random parameters "
+          f"drawn and both runs in {time.monotonic() - t0:.1f} s): "
+          f"build_step prefill on the mesh at B {JAMBA_B} x S {JAMBA_S} "
+          f"bit-identical to api.prefill, launches {json.dumps(n.n)}; "
+          f"{FAMILY_DECODE_STEPS} lockstep decode steps (8 sequences) "
+          f"bit-identical, launches {json.dumps(nd.n)}; {card_line()}",
+          flush=True)
+    del params, want, ref, out, got
+    free_card()
+
+
+def whisper_family(rules, total: dict) -> None:
+    """whisper-small: 32 ``build_step`` decode steps on phase 14's frames'
+    cross K/V on the mesh vs plain, bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.models.types import ShapeConfig
+
+    cfg = registry.get("whisper-small")
+    params = api_init(cfg)
+    frames = torch.as_tensor(whisper_batch(cfg, WHISPER_B, 1, seed=14)[
+        "frames"], device="cuda")
+    with torch.no_grad():
+        plain_cache = whisper_cross_cache(params, cfg, frames, 64)
+    cross = (plain_cache["cross_k"], plain_cache["cross_v"])
+    first = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (WHISPER_B, 1)), dtype=torch.int32, device="cuda")
+    toks, ref = plain_lockstep(params, cfg, plain_cache, first,
+                               WHISPER_DECODE)
+
+    def cache():
+        c = api.init_cache(cfg, WHISPER_B, 64, device="cuda")
+        c["cross_k"], c["cross_v"] = (t.clone() for t in cross)
+        return c
+
+    decode = steps.build_step(
+        cfg, ShapeConfig("decode_64", "decode", 64, WHISPER_B), rules)
+    with Launches(total) as n:
+        t0 = time.perf_counter()
+        out = lockstep(params, cache(), toks, decode.fn)
+        ms = (time.perf_counter() - t0) * 1e3 / len(toks)
+    n.expect("whisper decode on the mesh")
+    if not all_equal(out, ref):
+        raise AssertionError("whisper lockstep decode on the mesh: logits "
+                             "differ from the plain steps'")
+    print(f"phase 18: {cfg.name} at full width and depth, {WHISPER_DECODE} "
+          f"build_step decode steps on the mesh (B {WHISPER_B}, cross K/V "
+          f"of {WHISPER_FRAMES} frames, teacher-forced with the plain run's "
+          f"greedy tokens): logits bit-identical to api.decode's, "
+          f"{ms:.2f} ms a step; no kernel on this path; {card_line()}",
+          flush=True)
+    del params, ref, out, cross, plain_cache
+    free_card()
+
+
+def phase_families(rules) -> dict:
+    """Phase 18: every other model family on the one-rank mesh; returns the
+    launches on the mesh by kernel, with dbrx's and mamba2's times."""
+    total: dict = {}
+    t0 = time.monotonic()
+    dbrx = dbrx_family(rules, total)
+    mamba = mamba_family(rules, total)
+    jamba_family(rules, total)
+    whisper_family(rules, total)
+    print(f"phase 18: every family on the mesh in "
+          f"{time.monotonic() - t0:.1f} s; launches on the mesh "
+          f"{json.dumps(total)}", flush=True)
+    return {"launches": total, "dbrx": dbrx, "mamba": mamba}
 
 
 def api_init(cfg):
@@ -2607,7 +3077,7 @@ def main() -> int:
 
 
 def phases(sweep, workers: int, start: float) -> int:
-    """Phases 1-17 (the sweep's pool is already forked)."""
+    """Phases 1-18 (the sweep's pool is already forked)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
 
@@ -2707,12 +3177,18 @@ def phases(sweep, workers: int, start: float) -> int:
     del flush
     swept = phase_sweep(sweep, workers, reconf)
     torch.cuda.empty_cache()
-    sharded = phase_sharded(cfg)
+    with one_rank_mesh() as rules:
+        sharded = phase_sharded(cfg, rules)
+        free_card()
+        families = phase_families(rules)
+    fam = families["launches"]
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches + sharded["paged"],
-        "launches_by_phase": {"4": launches, "17": sharded["paged"]},
+        "replaces": KERNEL_REPLACES,
+        "launches": launches + sharded["paged"] + fam["paged_attention"],
+        "launches_by_phase": {"4": launches, "17": sharded["paged"],
+                              "18": fam["paged_attention"]},
         **kstats}]
     replaces = {"runahead_gather": f"{GATHER_REPLACES}:91",
                 "pipelined_gather": f"{GATHER_REPLACES}:117",
@@ -2756,19 +3232,25 @@ def phases(sweep, workers: int, start: float) -> int:
     kernels.append({
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
-        "launches": flash_launches + whisper_launches + sharded["flash"],
+        "launches": flash_launches + whisper_launches + sharded["flash"]
+        + fam["flash_attention"],
         "launches_by_phase": {"9": flash_launches, "14": whisper_launches,
-                              "17": sharded["flash"]},
+                              "17": sharded["flash"],
+                              "18": fam["flash_attention"]},
         **flash, "whisper_encoder": whisper_flash})
     for name, line in (("moe_dispatch", 45), ("moe_combine", 106)):
         kernels.append({
             "name": name, "route": "cuda", "source": MOE_SOURCE,
             "replaces": f"{MOE_REPLACES}:{line}",
-            "launches": moe_launches[name], **moe_times[name]})
+            "launches": moe_launches[name] + fam[name],
+            "launches_by_phase": {"11": moe_launches[name], "18": fam[name]},
+            **moe_times[name]})
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
-        "replaces": SSD_REPLACES, "launches": ssd_launches, **ssd})
-    print(f"phases 1-17 passed in {time.monotonic() - start:.1f} s",
+        "replaces": SSD_REPLACES, "launches": ssd_launches + fam["ssd_scan"],
+        "launches_by_phase": {"13": ssd_launches, "18": fam["ssd_scan"]},
+        **ssd})
+    print(f"phases 1-18 passed in {time.monotonic() - start:.1f} s",
           flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,11 @@
 //     order jnp.repeat(..., axis=2) produces, so the caller never repeats
 //     the pool to H heads;
 //   * lengths are clamped to P * page, and page-table entries past
-//     ceil(len / page) are never read (the TPU grid visits every entry).
+//     ceil(len / page) are never read (the TPU grid visits every entry);
+//   * a call may read a run of the pool's KV heads, [kv0, kv0 + Hkv) of
+//     its kv_stride, for the query heads of one tensor-parallel shard
+//     (H of them, H / Hkv a head, or all H on one KV head): the shard
+//     reads the whole pool in place, never a copy of its heads.
 //
 // Bound on this card: bytes.  Per call the kernel must read K and V of the
 // valid tokens, sum_b len_b * Hkv * D * 2 * sizeof(T), plus q and the
@@ -126,6 +130,7 @@ struct Args {
   float* ml;                 // [B, H, n_split, 2] (m, l) of each partial
   void* out;                 // [B, H, D]
   int H, Hkv, D, page, P, n_split, split_pages;
+  int kv_stride, kv0;        // the pool's KV heads; the first one read
   float scale;
 };
 
@@ -176,7 +181,8 @@ __global__ void __launch_bounds__(kThreads)
       const int tok = t0 + t;
       const int pid = __ldg(table + tok / a.page);
       const size_t row =
-          ((static_cast<size_t>(pid) * a.page + tok % a.page) * a.Hkv + g) *
+          ((static_cast<size_t>(pid) * a.page + tok % a.page) * a.kv_stride +
+           a.kv0 + g) *
           row_bytes;
       cp_async16(reinterpret_cast<char*>(ks) + t * row_bytes + c * 16, kp + row);
       cp_async16(reinterpret_cast<char*>(vs) + t * row_bytes + c * 16, vp + row);
@@ -433,22 +439,24 @@ int launch_both(const Args& a, int B, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  scratch holds B * H * n_split *
-// (D + 2) floats: the partials' acc, then their (m, l).  Returns a
-// cudaError_t (0 = both passes launched; a shape needing more shared
-// memory than a block may have is refused).
+// (D + 2) floats: the partials' acc, then their (m, l).  The pools hold
+// kv_stride KV heads a token, of which heads [kv0, kv0 + Hkv) are read.
+// Returns a cudaError_t (0 = both passes launched; a shape needing more
+// shared memory than a block may have is refused).
 int paged_attention_launch(int dtype, const void* q, const void* k_pages,
                            const void* v_pages, const void* page_table,
                            const void* lengths, void* out, void* scratch,
                            int B, int H, int Hkv, int D, int page, int P,
-                           int n_split, void* stream) {
+                           int n_split, int kv_stride, int kv0,
+                           void* stream) {
   if (B <= 0 || Hkv <= 0 || H % Hkv || D <= 0 || page <= 0 || P <= 0 ||
-      n_split <= 0 || n_split > P)
+      n_split <= 0 || n_split > P || kv0 < 0 || kv0 + Hkv > kv_stride)
     return static_cast<int>(cudaErrorInvalidValue);
   float* acc = static_cast<float*>(scratch);
   Args a{q, k_pages, v_pages, static_cast<const int32_t*>(page_table),
          static_cast<const int32_t*>(lengths), acc,
          acc + static_cast<size_t>(B) * H * n_split * D, out, H, Hkv, D, page,
-         P, n_split, (P + n_split - 1) / n_split,
+         P, n_split, (P + n_split - 1) / n_split, kv_stride, kv0,
          1.0f / sqrtf(static_cast<float>(D))};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_both<float>(a, B, s);

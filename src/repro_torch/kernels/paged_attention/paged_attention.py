@@ -23,8 +23,8 @@ SPLIT_TOKENS = 64     # keys a partition block loads at once, at most
 SMS = 132             # the H100's streaming multiprocessors
 MAX_ROW_BYTES = 1024  # the kernel's widest K/V row (64 chunks of 16 bytes)
 # paged_attention_launch(dtype, q, k_pages, v_pages, page_table, lengths,
-# out, scratch, B, H, Hkv, D, page, P, n_split, stream)
-ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+# out, scratch, B, H, Hkv, D, page, P, n_split, kv_stride, kv0, stream)
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
             + [ctypes.c_void_p])
 
 
@@ -34,7 +34,8 @@ def n_splits(b: int, hkv: int, pages_per_seq: int, page: int) -> int:
     keys (at least one page) and halves the run while the grid of
     ``b * hkv * n`` blocks is short of one wave on the card's SMs.  A pure
     function of shapes the host knows, never of ``lengths``, so the launch
-    needs no device sync; the plain split version takes the same count."""
+    needs no device sync; the plain split version takes the same count.
+    ``hkv`` is the pool's, also for a call that reads a run of its heads."""
     run = max(1, SPLIT_TOKENS // page)
     while run > 1 and b * hkv * -(-pages_per_seq // run) < SMS:
         run //= 2
@@ -49,7 +50,8 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q, k_pages, v_pages, page_table, lengths) -> None:
+def _check(q, k_pages, v_pages, page_table, lengths, kv_head0,
+           kv_heads) -> None:
     tensors = dict(q=q, k_pages=k_pages, v_pages=v_pages,
                    page_table=page_table, lengths=lengths)
     for name, t in tensors.items():
@@ -83,9 +85,14 @@ def _check(q, k_pages, v_pages, page_table, lengths) -> None:
                          f"{tuple(v_pages.shape)}, page_table "
                          f"{tuple(page_table.shape)}, lengths "
                          f"{tuple(lengths.shape)}")
-    if hkv < 1 or h % hkv:
+    kv_heads = hkv if kv_heads is None else kv_heads
+    if not (kv_heads >= 1 and 0 <= kv_head0 and kv_head0 + kv_heads <= hkv):
+        raise ValueError(f"paged_attention: KV heads [{kv_head0}, "
+                         f"{kv_head0 + kv_heads}) are not in the pool's "
+                         f"{hkv}")
+    if h % kv_heads:
         raise ValueError(f"paged_attention: H={h} is not a multiple of "
-                         f"Hkv={hkv}")
+                         f"the {kv_heads} KV heads read")
     if (d * q.element_size()) % 16 or d * q.element_size() > MAX_ROW_BYTES:
         raise ValueError(f"paged_attention: a row of D={d} {q.dtype} must be "
                          f"a multiple of 16 bytes, at most {MAX_ROW_BYTES}")
@@ -94,15 +101,22 @@ def _check(q, k_pages, v_pages, page_table, lengths) -> None:
                          "must not be empty")
 
 
-def paged_attention(q, k_pages, v_pages, page_table, lengths):
+def paged_attention(q, k_pages, v_pages, page_table, lengths, *,
+                    kv_head0: int = 0, kv_heads: int | None = None):
     """Launch the kernel: q [B,H,D]; pages [N,page,Hkv,D]; page_table [B,P]
     int32; lengths [B] int32 -> [B,H,D] in q's dtype (see ``ref.py`` for
-    the function computed).  CUDA tensors only; raises on anything else."""
+    the function computed).  CUDA tensors only; raises on anything else.
+
+    ``kv_head0`` and ``kv_heads`` (all of the pool's by default) name the
+    run of KV heads that q's heads read, for one tensor-parallel shard's
+    query heads; the split count is the whole pool's call's, so a shard's
+    heads come out bit for bit as in the unsharded call."""
     _build.refuse_dtensor("paged_attention", q, k_pages, v_pages, page_table,
                           lengths)
-    _check(q, k_pages, v_pages, page_table, lengths)
+    _check(q, k_pages, v_pages, page_table, lengths, kv_head0, kv_heads)
     b, h, d = q.shape
     _, page, hkv, _ = k_pages.shape
+    kv_heads = hkv if kv_heads is None else kv_heads
     p = page_table.shape[1]
     n = n_splits(b, hkv, p, page)
     out = torch.empty_like(q)
@@ -115,8 +129,8 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths):
         err = lib.paged_attention_launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), b, h, hkv, d, page, p, n,
-            stream)
+            out.data_ptr(), scratch.data_ptr(), b, h, kv_heads, d, page, p,
+            n, hkv, kv_head0, stream)
     if err != 0:     # e.g. a refused launch: too much shared memory
         raise RuntimeError(f"paged_attention: kernel launch failed with CUDA "
                            f"error {err}")

@@ -12,7 +12,18 @@ import math
 import torch
 
 
-def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
+def _heads(k_pages, table, kv_head0: int, kv_heads):
+    """Pages of ``table`` [B, P] as [B, P * page, n, D] float32 over KV
+    heads [kv_head0, kv_head0 + n) (all of them when ``kv_heads`` is
+    None)."""
+    _, page, hkv, d = k_pages.shape
+    n = hkv if kv_heads is None else kv_heads
+    rows = k_pages[table][..., kv_head0:kv_head0 + n, :]
+    return rows.reshape(table.shape[0], -1, n, d).float()
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_table, lengths, *,
+                        kv_head0: int = 0, kv_heads: int | None = None):
     """Single-token decode over paged KV.
 
     q:          [B, H, D]
@@ -23,18 +34,21 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
 
     Returns [B, H, D] in q's dtype.  Scores, softmax and the P.V sum run in
     float32; a zero-length row gives zeros.  Table entries of logical pages
-    past ``ceil(length / page)`` are not read.
+    past ``ceil(length / page)`` are not read.  ``kv_head0`` and
+    ``kv_heads`` name the run of the pool's KV heads that q's H heads
+    read (one tensor-parallel shard's), all of them by default.
     """
     b, h, d = q.shape
-    _, page, hkv, _ = k_pages.shape
+    _, page, _, _ = k_pages.shape
     pps = page_table.shape[1]
-    rep = h // hkv
     lengths = lengths.long()
     logical = torch.arange(pps, device=q.device)
     live = logical[None, :] * page < lengths[:, None]            # [B, P]
     table = torch.where(live, page_table.long(), 0)
-    kg = k_pages[table].reshape(b, pps * page, hkv, d).float()   # [B, S, Hkv, D]
-    vg = v_pages[table].reshape(b, pps * page, hkv, d).float()
+    kg = _heads(k_pages, table, kv_head0, kv_heads)              # [B, S, Hkv, D]
+    vg = _heads(v_pages, table, kv_head0, kv_heads)
+    hkv = kg.shape[2]
+    rep = h // hkv
     qg = q.float().reshape(b, hkv, rep, d)
     s = torch.einsum("bgrd,bsgd->bgrs", qg, kg) / math.sqrt(d)
     pos = torch.arange(pps * page, device=q.device)
@@ -48,7 +62,8 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, lengths):
 
 
 def paged_attention_split(q, k_pages, v_pages, page_table, lengths,
-                          n_split: int):
+                          n_split: int, *, kv_head0: int = 0,
+                          kv_heads: int | None = None):
     """The same function in the CUDA kernel's order of work: each row's
     page loop cut into ``n_split`` runs of ``ceil(P / n_split)`` pages
     (the count the wrapper's ``n_splits`` gives the kernel); per run and
@@ -58,17 +73,18 @@ def paged_attention_split(q, k_pages, v_pages, page_table, lengths,
     empty run weighing 0, and the output rounded once.  The kernel and this
     version then differ only by float32 summation order."""
     b, h, d = q.shape
-    _, page, hkv, _ = k_pages.shape
+    _, page, _, _ = k_pages.shape
     pps = page_table.shape[1]
-    rep = h // hkv
     run = -(-pps // n_split) * page                 # tokens a split
     span = n_split * run
     lengths = lengths.long().clamp(0, pps * page)
     logical = torch.arange(pps, device=q.device)
     live = logical[None, :] * page < lengths[:, None]
     table = torch.where(live, page_table.long(), 0)
-    kg = k_pages[table].reshape(b, pps * page, hkv, d).float()
-    vg = v_pages[table].reshape(b, pps * page, hkv, d).float()
+    kg = _heads(k_pages, table, kv_head0, kv_heads)
+    vg = _heads(v_pages, table, kv_head0, kv_heads)
+    hkv = kg.shape[2]
+    rep = h // hkv
     pad = span - pps * page
     kg = torch.nn.functional.pad(kg, (0, 0, 0, 0, 0, pad))
     vg = torch.nn.functional.pad(vg, (0, 0, 0, 0, 0, pad))

@@ -70,17 +70,17 @@ def train_step(state: dict, batch: dict, cfg: ModelConfig,
     else:
         micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
                  for k, v in batch.items()}
-        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in leaves]
-        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        # laid out as the leaves (a DTensor leaf's placements too)
+        grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
+        losses = []
         for i in range(accum):
             mb = {k: v[i] for k, v in micro.items()}
             l = api.train_loss(params, mb, cfg, device=device)
             for acc, g in zip(grads, _grads(l, leaves)):
                 acc.add_(g.float())
-            loss = loss + l.detach()
+            losses.append(l.detach())
         grads = [g / accum for g in grads]
-        loss = loss / accum
+        loss = sum(losses[1:], losses[0]) / accum
     grads = dict(zip(names, grads))
     state = adamw.apply_updates(state, grads, cfg=opt, transform=transform)
     metrics = {"loss": loss.detach(), "grad_norm": adamw.global_norm(grads)}

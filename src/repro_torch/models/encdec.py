@@ -229,9 +229,10 @@ def encdec_decode_step(params: EncDec, tokens: torch.Tensor, cache: dict,
     ``pos`` passes the cache, as the reference's update clamps) and the
     position advanced."""
     pos = cache["pos"]
-    x = F.embedding(tokens.long(), params.embed)              # [B,1,D]
-    x = x + sinusoid(torch.full((1,), pos, device=x.device),
-                     cfg.d_model).to(x.dtype)[None]
+    x = F.embedding(tokens.long(), sharding.gathered(params.embed))
+    x = x + sharding.replicated(sinusoid(
+        torch.full((1,), pos, device=x.device), cfg.d_model).to(x.dtype)[None],
+        x)                                                    # [B,1,D]
     dims = layers.attn_dims(cfg)
     s_c = cache["self_k"].shape[3]
     slot = min(pos, s_c - 1)
@@ -242,8 +243,8 @@ def encdec_decode_step(params: EncDec, tokens: torch.Tensor, cache: dict,
         kc, vc = cache["self_k"][i], cache["self_v"][i]
         h = layers.apply_norm(p.self_norm, x, cfg)
         q, k, v = layers._project_qkv(p.self_attn, h, h, dims)
-        kc[:, :, slot] = k[:, :, 0]
-        vc[:, :, slot] = v[:, :, 0]
+        sharding.put_(kc, 2, slot, k[:, :, 0])
+        sharding.put_(vc, 2, slot, v[:, :, 0])
         y = layers.decode_attention(q, kc, vc, self_positions, pos=pos)
         x = x + layers._merge_heads(p.self_attn, y)
         h = layers.apply_norm(p.cross_norm, x, cfg)

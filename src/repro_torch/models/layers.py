@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from .. import sharding
@@ -191,8 +191,13 @@ def _project_qkv(p: Attention, xq: torch.Tensor, xkv: torch.Tensor,
 
 
 def _merge_heads(p: Attention, y: torch.Tensor) -> torch.Tensor:
+    """[B,H,S,Dh] -> [B,S,D] through ``wo``, as one 2-D product: a
+    [B, 1, H*Dh] operand would fold into ``mm`` or run ``bmm`` on an
+    expanded weight by the stride of its size-1 dim, which a view (a
+    DTensor's local one too) leaves as it comes, and the two differ in
+    their last bits."""
     b, h, s, d = y.shape
-    return y.transpose(1, 2).reshape(b, s, h * d) @ p.wo
+    return (y.transpose(1, 2).reshape(b * s, h * d) @ p.wo).reshape(b, s, -1)
 
 
 def cache_attention(q, k_cache, v_cache, k_positions, q_positions,
@@ -209,6 +214,11 @@ def cache_attention(q, k_cache, v_cache, k_positions, q_positions,
     dtype for the product with V.  K and V are made contiguous first, so
     two callers that hold the same values in different layouts (the paged
     gather and the dense cache) run the same arithmetic bit for bit."""
+    if isinstance(q, DTensor):
+        return _attention_region(
+            lambda q, k, v, kp, qp: cache_attention(q, k, v, kp, qp,
+                                                    window=window),
+            q, k_cache, v_cache, k_positions, q_positions)
     b, hq, c, d = q.shape
     hkv, s_len = k_cache.shape[1], k_cache.shape[2]
     rep = hq // hkv
@@ -216,8 +226,8 @@ def cache_attention(q, k_cache, v_cache, k_positions, q_positions,
     qg = q.reshape(b, hkv, rep * c, d)
     s = torch.matmul(qg.float(), k_cache.float().transpose(-1, -2))
     s = s.reshape(b, hkv, rep, c, s_len) / math.sqrt(d)
-    kp = sharding.replicated(k_positions, q)[:, None, None, None, :]
-    qp = sharding.replicated(q_positions, q)[:, None, None, :, None]
+    kp = k_positions[:, None, None, None, :]
+    qp = q_positions[:, None, None, :, None]
     valid = (kp >= 0) & (kp <= qp)
     if window is not None:
         valid &= qp - kp < window
@@ -225,6 +235,28 @@ def cache_attention(q, k_cache, v_cache, k_positions, q_positions,
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     y = torch.matmul(p.reshape(b, hkv, rep * c, s_len), v_cache)
     return y.reshape(b, hq, c, d)
+
+
+def _attention_region(fn, q, k, v, *rows):
+    """``fn`` on each rank's shards of q [B, Hq, ...], k, v [B, Hkv, ...]
+    and of ``rows`` ([B | 1, ...] positions, plain or DTensors): the batch
+    as q's, the heads too where each shard holds whole KV heads (gathered
+    otherwise), everything else replicated (a cache's sequence shards
+    gathered).  The GQA views of attention flatten (B, H), which DTensor
+    (torch 2.11) refuses on a sharded head dim; in the region ``fn`` sees
+    plain tensors."""
+    mesh = q.device_mesh
+    b, hkv = q.shape[0], k.shape[1]
+    heads = math.prod(mesh.size(i) for i, p in enumerate(q.placements)
+                      if p == Shard(1))
+    pl = [p if p == Shard(0) or (p == Shard(1) and hkv % heads == 0)
+          else Replicate() for p in q.placements]
+    k, v, *rows = (sharding.replicated(t, q) for t in (k, v, *rows))
+    row_pls = [[p if p == Shard(0) and r.shape[0] == b else Replicate()
+                for p in pl] for r in rows]
+    return local_map(fn, out_placements=pl,
+                     in_placements=(pl, pl, pl, *row_pls), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, *rows)
 
 
 def decode_attention(q, k_cache, v_cache, k_positions, *, pos: int,
@@ -242,15 +274,18 @@ def reference_attention(q, k, v, *, causal: bool, window: int | None = None):
     """Oracle softmax attention.  q: [B,Hq,Sq,D]; k,v: [B,Hkv,Sk,D].
     Scores and softmax in float32, probabilities cast to v's dtype for the
     product with V; a fully masked row gives 0."""
+    if isinstance(q, DTensor):
+        return _attention_region(
+            lambda q, k, v: reference_attention(q, k, v, causal=causal,
+                                                window=window), q, k, v)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     rep = hq // hkv
     qg = q.reshape(b, hkv, rep, sq, d)
     scores = torch.matmul(qg.float(), k.float()[:, :, None].transpose(-1, -2))
     scores = scores / math.sqrt(d)
-    mask = sharding.replicated(
-        _chunk_mask(torch.arange(sq, device=q.device),
-                    torch.arange(sk, device=q.device), causal, window), q)
+    mask = _chunk_mask(torch.arange(sq, device=q.device),
+                       torch.arange(sk, device=q.device), causal, window)
     scores = scores.masked_fill(~mask, -math.inf)
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(torch.isnan(probs), 0.0, probs)  # fully masked rows

@@ -131,11 +131,14 @@ def _apply_block(block: Block, x: torch.Tensor, positions: torch.Tensor,
 
 def _remat(fn, *args):
     """``fn(*args)``, its intermediates recomputed in the backward instead
-    of kept (the reference's ``jax.checkpoint``) when autograd records."""
+    of kept (the reference's ``jax.checkpoint``) when autograd records.
+    The recompute runs under the forward's activation constraints, on
+    whichever thread autograd runs it."""
     if not torch.is_grad_enabled():
         return fn(*args)
     return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+                      preserve_rng_state=False,
+                      context_fn=sharding.recompute_contexts)
 
 
 def forward(params: LM, batch: dict, cfg: ModelConfig,
@@ -270,15 +273,15 @@ def _decode_attn(p: layers.Attention, x: torch.Tensor, c: dict, pos: int,
     if cfg.kv_quant:
         for name, t in (("k", k), ("v", v)):
             qv, scale = _quantize_kv(t)
-            c[name][:, :, slot] = qv[:, :, 0]
-            c[f"{name}_scale"][:, :, slot] = scale[:, :, 0]
+            sharding.put_(c[name], 2, slot, qv[:, :, 0])
+            sharding.put_(c[f"{name}_scale"], 2, slot, scale[:, :, 0])
         k_read = kc.to(torch.bfloat16) \
             * c["k_scale"][..., None].to(torch.bfloat16)
         v_read = vc.to(torch.bfloat16) \
             * c["v_scale"][..., None].to(torch.bfloat16)
     else:
-        kc[:, :, slot] = k[:, :, 0]
-        vc[:, :, slot] = v[:, :, 0]
+        sharding.put_(kc, 2, slot, k[:, :, 0])
+        sharding.put_(vc, 2, slot, v[:, :, 0])
         k_read, v_read = kc, vc
     y = layers.decode_attention(q, k_read, v_read, k_positions, pos=pos,
                                 window=window)

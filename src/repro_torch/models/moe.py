@@ -15,12 +15,27 @@ product over ``[E, G * cap, D]``.  The combine weights are the top-k
 weights rounded to bfloat16 first, as the reference's combine tensor is,
 and the expert inputs are rounded to bfloat16 (in a float32 model too), as
 the reference's dispatch einsum rounds them.
+
+On a mesh (DTensor activations) routing and dispatch run per data shard
+in one ``local_map`` region, and combine in another: each rank numbers
+its slots in its own [E, G_local, C] layout, so the region's output is
+the global [E, G, C, D] with the groups sharded over the data axes, the
+layout the ``expert_tokens`` rule takes to the experts; combine reads the
+expert outputs gathered over ``model``.  Capacity is per group, so the
+result is the unsharded one.  Where G does not divide over the data
+axes the rule replicates it, and so does the region.  The router's
+product stays outside the regions, a DTensor op, so its gradient sums
+over the data shards.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from .. import sharding
 from ..kernels.moe_dispatch import ops as moe_ops
@@ -102,15 +117,20 @@ class _Combine(torch.autograd.Function):
 def _route(p: MoE, xt: torch.Tensor, cfg: ModelConfig):
     """Routing of grouped tokens xt [G, S, D]: (probs [G,S,E] float32,
     top_i [G,S,K], top_w [G,S,K] float32, slot [G*S, K] int32)."""
-    g, gs, _ = xt.shape
-    e, k = cfg.n_experts, cfg.top_k
+    return _route_logits(xt.float() @ p.router, cfg)
+
+
+def _route_logits(logits: torch.Tensor, cfg: ModelConfig):
+    """:func:`_route` from the router's logits [G, S, E] float32."""
+    g, gs, e = logits.shape
+    k = cfg.top_k
     cap = moe_capacity(cfg, gs)
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)          # [G,S,E]
+    probs = torch.softmax(logits, dim=-1)                         # [G,S,E]
     top_w, top_i = torch.topk(probs, k, dim=-1)                   # [G,S,K]
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
     # capacity assignment, choice-priority order (GShard)
-    counts = torch.zeros((g, e), dtype=torch.float32, device=xt.device)
-    group = torch.arange(g, device=xt.device)[:, None]
+    counts = torch.zeros((g, e), dtype=torch.float32, device=logits.device)
+    group = torch.arange(g, device=logits.device)[:, None]
     slots = []
     for i in range(k):
         mask_i = F.one_hot(top_i[..., i], e).float()              # [G,S,E]
@@ -126,6 +146,46 @@ def _route(p: MoE, xt: torch.Tensor, cfg: ModelConfig):
     return probs, top_i, top_w, slot
 
 
+def _route_dispatch(tokens, logits, *, cfg: ModelConfig, gs: int):
+    """Routing and dispatch of tokens [T, D] (bfloat16) in groups of
+    ``gs`` from their router logits [T, E] float32: (expert inputs
+    [E, G, C, D], slot [T, K] int32 numbered in this [E, G, C] layout,
+    top_w [T, K] float32, probs [T, E], the first choice one-hot [T, E]).
+    On a mesh, one data shard's tokens and groups."""
+    t, d = tokens.shape
+    g, e = t // gs, cfg.n_experts
+    cap = moe_capacity(cfg, gs)
+    probs, top_i, top_w, slot = _route_logits(logits.reshape(g, gs, e), cfg)
+    xe = _Dispatch.apply(tokens, slot, e * g * cap).reshape(e, g, cap, d)
+    first = F.one_hot(top_i[..., 0], e).float().reshape(t, e)
+    return xe, slot, top_w.reshape(t, -1), probs.reshape(t, e), first
+
+
+def _combine(ye, slot, w):
+    """Combine from expert outputs [E, G, C, D] (one data shard's groups
+    on a mesh)."""
+    return _Combine.apply(ye.reshape(-1, ye.shape[-1]), slot, w)
+
+
+def _regions(x: DTensor, e: int, g: int, cap: int, d: int, route, combine):
+    """``route`` and ``combine`` as ``local_map`` regions over x's mesh:
+    tokens, slots and weights sharded over the axes the ``expert_tokens``
+    rule shards G over (none where G does not divide, or without rules),
+    replicated over the rest."""
+    mesh = x.device_mesh
+    experts = (sharding.layout((e, g, cap, d), "expert_tokens")
+               or [Replicate()] * mesh.ndim)
+    groups = [Shard(1) if p == Shard(1) else Replicate() for p in experts]
+    rows = [Shard(0) if p == Shard(1) else Replicate() for p in groups]
+    route = local_map(route, out_placements=(groups, rows, rows, rows, rows),
+                      in_placements=(rows, rows), device_mesh=mesh,
+                      redistribute_inputs=True)
+    combine = local_map(combine, out_placements=rows,
+                        in_placements=(groups, rows, rows), device_mesh=mesh,
+                        redistribute_inputs=True)
+    return route, combine
+
+
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [..., D] (any leading shape); returns (y, aux load-balance loss
@@ -139,26 +199,27 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
     g = n_tok // gs
     e = cfg.n_experts
     cap = moe_capacity(cfg, gs)
-    xt = tokens.reshape(g, gs, d)
-    probs, top_i, top_w, slot = _route(p, xt, cfg)
+    route = functools.partial(_route_dispatch, cfg=cfg, gs=gs)
+    combine = _combine
+    if isinstance(x, DTensor):
+        route, combine = _regions(x, e, g, cap, d, route, combine)
+    logits = tokens.float() @ p.router                            # [T,E]
+    xe, slot, top_w, probs, first = route(tokens.to(torch.bfloat16), logits)
 
     # tokens -> expert shards: the slots are [E, G, C] major to minor, the
     # reference's expert_tokens layout
-    xe = _Dispatch.apply(tokens.to(torch.bfloat16), slot, e * g * cap)
-    xe = sharding.constrain(xe.reshape(e, g, cap, d), "expert_tokens")
+    xe = sharding.constrain(xe, "expert_tokens")
     xe = xe.reshape(e, g * cap, d).to(p.wi_gate.dtype)
     h = F.silu(torch.bmm(xe, p.wi_gate)) * torch.bmm(xe, p.wi_up)
     ye = sharding.constrain(torch.bmm(h, p.wo).reshape(e, g, cap, d),
-                            "expert_tokens").reshape(e * g * cap, d)
-    y = _Combine.apply(ye, slot,
-                       top_w.reshape(n_tok, -1).to(torch.bfloat16))
+                            "expert_tokens")
+    y = combine(ye, slot, top_w.to(torch.bfloat16))
     if p.shared is not None:
         y = y + layers.apply_mlp(p.shared, tokens).to(y.dtype)
 
-    # load-balance aux loss (Switch): E * sum_e f_e * P_e
-    route_frac = F.one_hot(top_i[..., 0], e).float().mean(dim=(0, 1))
-    prob_frac = probs.mean(dim=(0, 1))
-    aux = e * torch.sum(route_frac * prob_frac)
+    # load-balance aux loss (Switch): E * sum_e f_e * P_e, means over all
+    # tokens (on a mesh, over every shard's)
+    aux = e * torch.sum(first.mean(dim=0) * probs.mean(dim=0))
     return y.reshape(orig_shape).to(x.dtype), aux
 
 

@@ -36,6 +36,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from .. import sharding
+from ..sharding.rules import local_box
 from . import layers
 from .lm import LM, _ffn, _lm_head
 from .types import ModelConfig
@@ -217,25 +218,52 @@ def _attn_decode(p, x, c, cache, active, cfg: ModelConfig,
 
 def _paged_read(q, kp, vp, table, lengths):
     """The paged-attention kernel (its plain version on CPU tensors).  On
-    DTensors (a mesh) it runs in a ``local_map`` region on replicated
-    operands: each rank reads every slot's pages for all heads.  Query
-    heads sharded over ``model`` would need each shard's kv heads picked
-    from the pool, which is not ported: that raises."""
+    DTensors (a mesh) it runs in a ``local_map`` region: the pools, table
+    and lengths replicated, q's heads sharded as they come (over
+    ``model``) and the rest of q replicated; each rank reads its own query
+    heads (:func:`shard_read`)."""
     from repro_torch.kernels.paged_attention import ops as paged_ops
     if not isinstance(q, DTensor):
         return paged_ops.paged_attention(q, kp, vp, table, lengths)
     mesh = q.device_mesh
-    for i, pl in enumerate(q.placements):
-        if isinstance(pl, Shard) and pl.dim == 1 and mesh.size(i) > 1:
-            raise NotImplementedError(
-                f"paged decode attention with query heads sharded over "
-                f"mesh dim {mesh.mesh_dim_names[i]!r} of size "
-                f"{mesh.size(i)}: the per-shard kv-head read is not ported; "
-                f"serve under a mesh whose 'model' axis is 1")
     rep = [Replicate()] * mesh.ndim
-    return local_map(paged_ops.paged_attention, out_placements=rep,
-                     in_placements=(rep,) * 5, device_mesh=mesh,
+    q_pl = [p if p == Shard(1) else Replicate() for p in q.placements]
+    lo, hi = local_box(q.shape, mesh, q_pl)[1]
+    read = shard_read(q.shape[1], kp.shape[2], lo, hi)
+    return local_map(read, out_placements=q_pl,
+                     in_placements=(q_pl,) + (rep,) * 4, device_mesh=mesh,
                      redistribute_inputs=True)(q, kp, vp, table, lengths)
+
+
+def shard_read(h: int, hkv: int, lo: int, hi: int):
+    """The paged read of query heads [lo, hi) of ``h`` (one rank's shard)
+    on a pool of ``hkv`` KV heads: ``read(q, kp, vp, table, lengths)`` with
+    q [B, hi - lo, D].  It reads, from the whole pool in place, the KV
+    heads those query heads use (q head // rep): several KV heads for a
+    shard of whole groups; for a shard of a part of one group (shards
+    sharing a KV head), that KV head for the whole group, the other
+    shards' heads zero, of which it keeps its own, so that every head is
+    computed as in the unsharded call."""
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    group = h // hkv
+    if hi > lo and lo % group == 0 and (hi - lo) % group == 0:
+        kv0, kv_heads, lead = lo // group, (hi - lo) // group, None
+    elif hi > lo and lo // group == (hi - 1) // group:
+        kv0, kv_heads, lead = lo // group, 1, lo % group
+    else:
+        raise ValueError(f"paged read: query heads [{lo}, {hi}) of {h} "
+                         f"split a group of {group} a KV head unevenly")
+
+    def read(q, kp, vp, table, lengths):
+        if lead is not None:                 # the whole group, then ours
+            whole = q.new_zeros(q.shape[0], group, q.shape[2])
+            whole[:, lead:lead + q.shape[1]] = q
+            q, n = whole, q.shape[1]
+        y = paged_ops.paged_attention(q, kp, vp, table, lengths,
+                                      kv_head0=kv0, kv_heads=kv_heads)
+        return y if lead is None else y[:, lead:lead + n].contiguous()
+
+    return read
 
 
 def _attn_prefill(p, x, c, cache, slot: int, positions, write_mask,

@@ -10,12 +10,20 @@ across heads.  The projections are separate weights, as in the reference.
 Shapes: d_inner = expand * d_model, H = d_inner / ssm_d_head heads of size
 P, state size N = ssm_state, depthwise causal conv of width W over x, B
 and C.  Decode caches are updated in place.
+
+On a mesh (DTensor activations) the scan runs in a ``local_map`` region
+on each rank's shards: x and dt batch over the data axes and heads over
+``model`` (where the ``ssd_y`` rule shards them), A_log and D like the
+heads, B and C like the batch; the backward runs on the same shards, and
+the gradients of the operands a rank holds whole are its partial sums.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from .. import sharding
 from ..kernels.ssd_scan import ops as ssd_ops
@@ -70,12 +78,12 @@ def _causal_conv(x, w, b, *, state=None):
     state)."""
     width = w.shape[0]
     if state is None:
-        pad = torch.zeros((x.shape[0], width - 1) + x.shape[2:],
-                          dtype=x.dtype, device=x.device)
+        # zeros laid out as x (a DTensor's placements too)
+        pad = torch.zeros_like(x[:, :1]).expand(-1, width - 1, -1)
     else:
         pad = state.to(x.dtype)
     full = torch.cat([pad, x], dim=1)                    # [B, S+W-1, C]
-    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    out = torch.zeros_like(x, dtype=torch.float32)
     for i in range(width):
         out = out + full[:, i:i + x.shape[1], :].float() * w[i].float()
     out = F.silu(out + b.float())
@@ -133,8 +141,33 @@ def ssd_chunked(xh, dt, a_log, b_mat, c_mat, d_skip, *, chunk: int):
     assert s % q == 0, (s, chunk)
     xh = _constrain_chunks(xh, q, "ssd_xs5")
     dt = _constrain_chunks(dt, q, "ssd_xs4")
-    y = _SSDChunked.apply(xh, dt, a_log, b_mat, c_mat, d_skip, chunk)
+
+    def scan(*operands):
+        return _SSDChunked.apply(*operands, chunk)
+
+    if isinstance(xh, DTensor):
+        scan = _scan_region(xh, scan)
+    y = scan(xh, dt, a_log, b_mat, c_mat, d_skip)
     return sharding.constrain(y, "ssd_y")
+
+
+def _scan_region(xh: DTensor, scan):
+    """``scan`` as a ``local_map`` region on the layout the ``ssd_y`` rule
+    gives y [B,S,H,P] (replicated without rules).  A rank holding A_log
+    and D whole for a batch shard, or B and C for a head shard, computes
+    a partial sum of their gradient."""
+    mesh = xh.device_mesh
+    x = sharding.layout(xh.shape, "ssd_y") or [Replicate()] * mesh.ndim
+    heads = [Shard(0) if p == Shard(2) else Replicate() for p in x]
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in x]
+    heads_grad = [Partial() if p == Shard(0) else h for p, h in zip(x, heads)]
+    rows_grad = [Partial() if p == Shard(2) else r for p, r in zip(x, rows)]
+    return local_map(
+        scan, out_placements=x,
+        in_placements=(x, x, heads, rows, rows, heads),
+        in_grad_placements=(x, x, heads_grad, rows_grad, rows_grad,
+                            heads_grad),
+        device_mesh=mesh, redistribute_inputs=True)
 
 
 def _constrain_chunks(t: torch.Tensor, q: int, kind: str) -> torch.Tensor:

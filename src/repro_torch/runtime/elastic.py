@@ -34,7 +34,7 @@ def _same_mesh(a, b) -> bool:
 def _leaf(x, rules: MeshRules, spec: P):
     if not isinstance(x, torch.Tensor):
         return x
-    placements = rules.placements(spec)
+    placements = rules.placements(spec, x.shape)
     if isinstance(x, DTensor):
         if (_same_mesh(x.device_mesh, rules.mesh)
                 and list(x.placements) == placements):

@@ -1,4 +1,5 @@
-from .ctx import constrain, constrainer, full, gathered, local, replicated
+from .ctx import (constrain, constrainer, full, gathered, layout, local, put_,
+                  recompute_contexts, replicated)
 
-__all__ = ["constrain", "constrainer", "full", "gathered", "local",
-           "replicated"]
+__all__ = ["constrain", "constrainer", "full", "gathered", "layout", "local",
+           "put_", "recompute_contexts", "replicated"]

@@ -13,7 +13,14 @@ the RoPE table, masks) on ``like``'s mesh, replicated, when ``like`` is a
 DTensor: an op that mixes a plain tensor with a DTensor raises.
 ``gathered`` and ``full`` take a DTensor whole, on the mesh or off it;
 ``local`` is a replicated DTensor's own copy on this rank, for writes
-that every rank makes alike.
+that every rank makes alike; ``put_`` writes one index of a (possibly
+sharded) DTensor in place, each rank into the shard it holds.
+``layout`` tells a kernel site which placements the installed rules pin
+for a kind, so that it can open its ``local_map`` region on them.
+
+The constrainer is thread-local, and autograd runs a CUDA backward on
+its own device thread: an activation checkpoint's recompute, which runs
+there, takes the forward's constrainer through ``recompute_contexts``.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ import threading
 from typing import Callable
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 
 _state = threading.local()
 
@@ -30,6 +39,15 @@ _state = threading.local()
 def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
     fn = getattr(_state, "fn", None)
     return fn(x, kind) if fn is not None else x
+
+
+def layout(shape, kind: str):
+    """The placements ``constrain`` pins on a DTensor of ``shape`` for
+    ``kind`` under the installed constrainer; None without one, or where
+    the kind does not apply."""
+    fn = getattr(_state, "fn", None)
+    placements = getattr(fn, "placements", None)
+    return None if placements is None else placements(tuple(shape), kind)
 
 
 @contextlib.contextmanager
@@ -40,6 +58,14 @@ def constrainer(fn: Callable[[torch.Tensor, str], torch.Tensor]):
         yield
     finally:
         _state.fn = prev
+
+
+def recompute_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: (a no-op for the
+    forward, the constrainer installed now for the recompute)."""
+    fn = getattr(_state, "fn", None)
+    return (contextlib.nullcontext(),
+            constrainer(fn) if fn is not None else contextlib.nullcontext())
 
 
 def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -73,3 +99,24 @@ def local(t: torch.Tensor) -> torch.Tensor:
     if any(not p.is_replicate() for p in t.placements):
         raise ValueError(f"local: {t.placements} is not replicated")
     return t.to_local()
+
+
+def put_(dst: torch.Tensor, dim: int, index: int, src: torch.Tensor) -> None:
+    """``dst.select(dim, index).copy_(src)`` in place.  On a DTensor every
+    rank takes ``src`` onto ``dst``'s placements (a dim sharded along
+    ``dim`` replicated) and writes the part of its own shard, if its shard
+    holds ``index``; DTensor's own ``select`` of a sharded dim would
+    gather it into a new tensor and the write would be lost."""
+    if not isinstance(dst, DTensor):
+        dst.select(dim, index).copy_(src)
+        return
+    mesh = dst.device_mesh
+    src_pl = [Replicate() if not isinstance(p, Shard) or p.dim == dim
+              else Shard(p.dim - (p.dim > dim)) for p in dst.placements]
+    src = replicated(src, dst)
+    src = src.redistribute(mesh, src_pl).to_local()
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(dst.shape), mesh, dst.placements)
+    at = index - offset[dim]
+    if 0 <= at < shape[dim]:
+        dst.to_local().select(dim, at).copy_(src)

@@ -258,18 +258,29 @@ class MeshRules:
             spec = self.constraint_spec(tuple(x.shape), kind)
             if spec is None:
                 return x
-            return x.redistribute(x.device_mesh, self.placements(spec))
+            return x.redistribute(x.device_mesh,
+                                  self.placements(spec, x.shape))
 
+        def placements(shape: tuple, kind: str):
+            spec = self.constraint_spec(shape, kind)
+            return None if spec is None else self.placements(spec, shape)
+
+        fn.placements = placements      # read by sharding.layout
         return fn
 
     # -- helpers ---------------------------------------------------------------
-    def placements(self, spec: P) -> list[Placement]:
+    def placements(self, spec: P, shape=None) -> list[Placement]:
         """DTensor placements (one per mesh dim) of ``spec``.  A tensor dim
         sharded over several axes takes ``Shard(d)`` on each, in mesh-dim
-        order (``pod`` major), which is JAX's order."""
+        order (``pod`` major), which is JAX's order.  Given the tensor's
+        ``shape``, a dim of size 1 stays replicated: only axes of size 1
+        divide it, where a shard moves nothing, and DTensor refuses to view
+        a sharded dim of size 1 away (``[1, S, D] -> [S, D]``)."""
         names = list(self.mesh.mesh_dim_names)
         out: list[Placement] = [Replicate()] * len(names)
         for d, entry in enumerate(spec):
+            if shape is not None and shape[d] == 1:
+                continue
             idx = [names.index(a) for a in _axes(entry)]
             if idx != sorted(idx):
                 raise ValueError(f"{spec}: {entry} is not in mesh-dim order "

@@ -170,3 +170,33 @@ def test_replicated_gathered_and_full(mesh):
     assert g.placements == (Replicate(),) * 2 and torch.equal(g.to_local(), x)
     assert sharding.gathered(x) is x and sharding.full(x) is x
     assert torch.equal(sharding.full(xd), x)
+
+
+def test_a_recompute_on_another_thread_keeps_the_forwards_constraints():
+    """A CUDA backward runs on autograd's device thread, where the
+    thread-local constrainer is not installed: the per-layer checkpoint's
+    recompute must take the forward's (here the backward runs on a thread
+    of its own, as on the card)."""
+    import threading
+
+    from repro_torch.models import lm
+
+    seen = []
+
+    def fn(x, kind):
+        seen.append((threading.get_ident(), kind))
+        return x
+
+    x = _randn(4, 8).requires_grad_(True)
+    with sharding.constrainer(fn):
+        # the constraint comes before the op whose saved output the
+        # backward needs: the recompute stops once it has that output
+        y = lm._remat(lambda t: sharding.constrain(t, "layer").exp(), x)
+    grads = []
+    worker = threading.Thread(target=lambda: grads.extend(
+        torch.autograd.grad(y.sum(), [x])))
+    worker.start()
+    worker.join()
+    assert torch.equal(grads[0], x.detach().exp())
+    assert [k for _, k in seen] == ["layer", "layer"]
+    assert seen[0][0] != seen[1][0]        # the recompute ran on the worker

@@ -1,7 +1,8 @@
 """The port's sharding layer on a mesh of CPU ranks: the twins of
 tests/test_distributed.py's host-mesh checks (sharded train step, sharded
 checkpoint round trip, crash -> resume, elastic reshard, reshard round
-trip), and the paged read's refusal of query heads sharded over "model".
+trip), and the paged read with query heads sharded over a "model" axis
+of 2 and of 4, bit for bit the unsharded read.
 
 tests/torch_host_mesh_checks.py runs the checks on 4 gloo ranks (mesh
 (2, 2), qwen2 smoke at seq 64 x batch 8, ``sequence_parallel=False``, as
@@ -41,11 +42,12 @@ import torch_host_mesh_checks as checks  # noqa: E402
 RUN_TIMEOUT_S = 300
 
 
-def run_checks(group: str, tmp: pathlib.Path) -> dict:
+def run_checks(group: str, tmp: pathlib.Path,
+               timeout: float = RUN_TIMEOUT_S) -> dict:
     out = tmp / "result.json"
     proc = subprocess.run(
         [sys.executable, str(SCRIPT), "--group", group, "--out", str(out)],
-        capture_output=True, text=True, timeout=RUN_TIMEOUT_S)
+        capture_output=True, text=True, timeout=timeout)
     results = json.loads(out.read_text()) if out.exists() else {}
     if proc.returncode != 0 and not results:
         pytest.fail(f"{group}: rc {proc.returncode}\n{proc.stderr[-3000:]}")
@@ -79,13 +81,13 @@ def _reference_loss() -> float:
         jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg))
 
 
-def check_f32_step(r: dict) -> None:
+def check_f32_step(r: dict, moment_tol: float = 1e-4) -> None:
     """The float32 sharded step against the port's unsharded one."""
     assert r["placed"] and r["step_equal"]
     for key in ("loss", "grad_norm"):
         got, want = r[f"f32_{key}"], r[f"f32_plain_{key}"]
         assert abs(got - want) <= 1e-5 * abs(want), (key, got, want)
-    assert r["moment_max_rel_norm"] <= 1e-4, r
+    assert r["moment_max_rel_norm"] <= moment_tol, r
     assert r["param_max_abs"] <= 2 * r["lr"], r
 
 
@@ -99,7 +101,7 @@ def test_sharded_train_step_matches_single_device(four):
 @pytest.mark.parametrize("name", ["checkpoint_roundtrip",
                                   "crash_resume_bitwise", "elastic_reshard",
                                   "reshard_roundtrip",
-                                  "paged_read_refuses_model_sharded_heads"])
+                                  "paged_read_model_sharded_heads"])
 def test_host_mesh_check(four, name):
     r = result(four, name)
     assert r["ok"], r

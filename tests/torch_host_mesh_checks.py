@@ -5,8 +5,9 @@ Run by tests/test_torch_host_mesh.py and tests/test_torch_mesh_steps.py:
 
     python tests/torch_host_mesh_checks.py --group mesh --out result.json
 
-spawns the group's ranks (4 for ``mesh`` and ``sequence_parallel``, 1 for
-``steps``) that meet through a ``FileStore`` next to ``--out`` (no TCP
+spawns the group's ranks (4 for ``mesh``, ``sequence_parallel`` and
+``families``, 1 for ``steps``) that meet through a ``FileStore`` next to
+``--out`` (no TCP
 port, so several runs can go at once), runs the group's checks on all
 ranks, and has rank 0 write one JSON object,
 ``{check: {"ok": bool, ...numbers or "error"}}``.  Every collective times
@@ -24,7 +25,9 @@ import os
 import pathlib
 import sys
 import tempfile
+import time
 import traceback
+import types
 
 import torch
 import torch.distributed as dist
@@ -32,12 +35,14 @@ import torch.multiprocessing as mp
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1] / "src"))
 
+from repro_torch import sharding  # noqa: E402
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.data.pipeline import synthetic_batch  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
-from repro_torch.models import api, paged_lm  # noqa: E402
+from repro_torch.models import api, encdec, paged_lm  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.types import ShapeConfig  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.runtime.elastic import reshard_state  # noqa: E402
@@ -54,9 +59,24 @@ SEED, BATCH_SEED = 0, 7
 TIMEOUT_S = 120
 
 
+# the families group's archs: (registry name, smoke changes).  jamba is
+# cut to its first 4 layers, the fewest that hold an SSM, an attention and
+# an MoE block (a period of 4 keeps its pattern's first 4 positions and
+# the reference's rule that the period divides the depth), and to one
+# microbatch (its 8 leave 1 row each, which no data axis can shard)
+FAMILIES = {"dbrx": ("dbrx-132b", {}), "mamba2": ("mamba2-2.7b", {}),
+            "jamba": ("jamba-1.5-large-398b",
+                      {"n_layers": 4, "period": 4, "accum_steps": 1}),
+            "whisper": ("whisper-small", {})}
+
+
+def smoke(arch=ARCH, **changes):
+    return dataclasses.replace(registry.smoke(arch), **changes)
+
+
 def tiny_setup(data=2, model=2, seed=SEED, dtype=None,
-               sequence_parallel=False):
-    cfg = registry.smoke(ARCH)
+               sequence_parallel=False, cfg=None):
+    cfg = cfg or smoke()
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     rules = MeshRules(make_host_mesh(data, model),
@@ -109,11 +129,12 @@ def check_sequence_parallel_train_step(tmp):
     return f32_step_vs_plain(sequence_parallel=True)
 
 
-def f32_step_vs_plain(sequence_parallel=False) -> dict:
+def f32_step_vs_plain(sequence_parallel=False, cfg=None) -> dict:
     """One sharded float32 step against the port's unsharded
     ``train_step`` from the same state: loss, grad norm and every leaf."""
     cfg, _, built, state = tiny_setup(dtype="float32",
-                                      sequence_parallel=sequence_parallel)
+                                      sequence_parallel=sequence_parallel,
+                                      cfg=cfg)
     batch = batch_fn(cfg)(0)
     state, metrics = built.fn(state, batch)
     opt = steps.make_optimizer(cfg)
@@ -235,20 +256,182 @@ def check_engine_under_mesh(tmp):
     return out
 
 
-def check_paged_read_refuses_model_sharded_heads(tmp):
-    """Query heads sharded over a "model" axis of 4: the paged read must
-    raise, not read the wrong kv heads."""
-    mesh = make_host_mesh(1, 4)
-    q = distribute_tensor(torch.zeros(2, 8, 16), mesh,
-                          [Replicate(), Shard(1)], src_data_rank=None)
-    pool = torch.zeros(3, 4, 2, 16)
-    try:
-        paged_lm._paged_read(q, pool, pool,
-                             torch.ones(2, 1, dtype=torch.int32),
-                             torch.ones(2, dtype=torch.int32))
-    except NotImplementedError as e:
-        return {"ok": "'model'" in str(e), "error_text": str(e)}
-    return {"ok": False}
+def check_paged_read_model_sharded_heads(tmp):
+    """Query heads sharded over a "model" axis of 2 and of 4, for 8 query
+    heads on 4 KV heads and 4 on 2: a shard of several KV heads, of one,
+    and shards sharing one.  Each rank reads its heads' KV heads from the
+    whole replicated pool; the result equals the unsharded read bit for
+    bit."""
+    gen = torch.Generator().manual_seed(5)
+    table = torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32)
+    lengths = torch.tensor([9, 40], dtype=torch.int32)
+    out = {}
+    for model in (2, 4):
+        mesh = make_host_mesh(4 // model, model)
+        rep = [Replicate()] * 2
+        for h, hkv in ((8, 4), (4, 2)):
+            q = torch.randn(2, h, 16, generator=gen)
+            kp, vp = (torch.randn(7, 16, hkv, 16, generator=gen)
+                      for _ in range(2))
+            want = paged_lm._paged_read(q, kp, vp, table, lengths)
+            got = paged_lm._paged_read(
+                distribute_tensor(q, mesh, [Replicate(), Shard(1)],
+                                  src_data_rank=None),
+                *(distribute_tensor(t, mesh, rep, src_data_rank=None)
+                  for t in (kp, vp, table, lengths)))
+            out[f"model{model}_h{h}_kv{hkv}"] = (
+                isinstance(got, DTensor) and same_bits(got, want))
+    out["ok"] = all(out.values())
+    return out
+
+
+def check_family_steps(arch, changes) -> dict:
+    """One family at (2, 2): a sharded bfloat16 train step's loss, for the
+    test to hold against the reference's single-device loss; a sharded
+    float32 step against the unsharded one; then, in float32, ``build_step``
+    prefill (at the shape of one training microbatch) and 3 lockstep decode
+    steps against the plain steps (whisper's cross K/V precomputed from
+    one plain encoding, in both caches)."""
+    cfg = smoke(arch, **changes)
+    _, rules, built, state = tiny_setup(cfg=cfg)
+    _, metrics = built.fn(state, batch_fn(cfg)(0))
+    out = {"loss": float(metrics["loss"])}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out.update(f32_step_vs_plain(cfg=cfg32))
+
+    params = api.init_params(cfg32, torch.Generator().manual_seed(SEED),
+                             "cpu")
+    prefill = ShapeConfig("p", "prefill", seq_len=SHAPE.seq_len,
+                          global_batch=SHAPE.global_batch
+                          // max(1, cfg.accum_steps))
+    batch = synthetic_batch(cfg32, prefill, seed=BATCH_SEED, step=0)
+    batch.pop("labels", None)
+    want = steps.prefill_step(params, batch, cfg32, device="cpu")
+    got = full(steps.build_step(cfg32, prefill, rules).fn(params, batch))
+    out["prefill_err"] = float((got - want).abs().max())
+    out["prefill_scale"] = float(want.abs().max())
+
+    b, s = 2, 32
+    decode = ShapeConfig("d", "decode", seq_len=s, global_batch=b)
+    plain = api.init_params(cfg32, torch.Generator().manual_seed(SEED), "cpu")
+    built = steps.build_step(cfg32, decode, rules)
+    tokens = torch.tensor([[3], [7]], dtype=torch.int32)
+    cache, ref_cache = (api.init_cache(cfg32, b, s, device="cpu")
+                        for _ in range(2))
+    if cfg.family == "encdec":
+        frames = torch.randn(b, cfg.cross_len, cfg.d_model,
+                             generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            cross = encdec.precompute_cross(
+                plain, encdec.encode(plain, frames, cfg32), cfg32)
+        for c in (cache, ref_cache):
+            c["cross_k"], c["cross_v"] = (t.clone() for t in cross)
+    errs, scale = [], 0.0
+    for _ in range(3):
+        logits, cache = built.fn(params, tokens, cache)
+        ref, ref_cache = steps.serve_step(plain, tokens, ref_cache, cfg32)
+        errs.append(float((full(logits) - ref).abs().max()))
+        scale = max(scale, float(ref.abs().max()))
+        tokens = ref.argmax(-1, keepdim=True).to(torch.int32)
+    out.update(decode_errs=errs, decode_scale=scale,
+               moe=cfg.n_experts > 0,
+               cache_dtensor=all(isinstance(t, DTensor) for t in leaves_of(
+                   cache)))
+    out["ok"] = out["ok"] and out["cache_dtensor"]
+    return out
+
+
+def leaves_of(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves_of(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def _family_check(name):
+    def check(tmp):
+        return check_family_steps(*FAMILIES[name])
+
+    check.__name__ = f"check_family_{name}"
+    return check
+
+
+def check_moe_groups_over_data(tmp):
+    """``apply_moe`` (dbrx smoke, float32) on DTensor tokens sharded over
+    data at (2, 2) under the rules, forward and gradients against the
+    plain call: 4 groups, which divide over data (each rank routes its
+    own), and 1 group of 32 tokens, which does not (the rule replicates
+    G, and so does the region)."""
+    cfg = smoke("dbrx-132b", dtype="float32")
+    rules = MeshRules(make_host_mesh(2, 2), sequence_parallel=False)
+    block = api.init_params(cfg, torch.Generator().manual_seed(SEED),
+                            "cpu").blocks[0].moe
+    specs = {n: rules.param_specs(block).get(n) for n, _ in
+             block.named_parameters()}
+    out = {}
+    for name, (b, s) in (("groups_divide", (4, 64)),
+                         ("group_replicated", (2, 16))):
+        x = torch.randn(b, s, cfg.d_model,
+                        generator=torch.Generator().manual_seed(b))
+        dy = torch.randn(b, s, cfg.d_model,
+                         generator=torch.Generator().manual_seed(b + 1))
+        plain = {n: p.detach().clone().requires_grad_(True)
+                 for n, p in block.named_parameters()}
+        placed = {n: distribute_tensor(p.detach().clone(), rules.mesh,
+                                       rules.placements(specs[n]),
+                                       src_data_rank=None).requires_grad_(True)
+                  for n, p in block.named_parameters()}
+
+        def run(weights, x, dy):
+            x = x.clone().requires_grad_(True)
+            m = types.SimpleNamespace(**weights, shared=None)
+            y, aux = moe_mod.apply_moe(m, x, cfg)
+            loss = (y * dy).sum() + aux
+            grads = torch.autograd.grad(loss, [x, *weights.values()])
+            return y, aux, grads
+
+        y, aux, grads = run(plain, x, dy)
+        with sharding.constrainer(rules.constrain_fn()):
+            xd = distribute_tensor(x, rules.mesh, [Shard(0), Replicate()],
+                                   src_data_rank=None)
+            yd, auxd, grads_d = run(placed, xd, distribute_tensor(
+                dy, rules.mesh, [Shard(0), Replicate()], src_data_rank=None))
+        out[name] = {
+            "y_err": float((full(yd) - y).abs().max()),
+            "aux_err": abs(float(full(auxd)) - float(aux)),
+            "grad_rel": max(float((full(gd) - g).norm() / g.norm())
+                            for g, gd in zip(grads, grads_d)),
+            "y_dtensor": isinstance(yd, DTensor)}
+    out["ok"] = all(r["y_dtensor"] for r in out.values())
+    return out
+
+
+def check_engines_with_rules(tmp):
+    """``ServeEngine(rules=)`` at (2, 2) and (1, 4) against the plain
+    engine, qwen2 and dbrx smoke: the same greedy tokens.  At "model" 2
+    each shard's 2 query heads read one KV head, at 4 two shards share
+    one."""
+    prompts = ([1, 2, 3], [5, 6, 7, 8, 9, 10, 11, 12, 13], [4])
+    out = {}
+    for arch in ("qwen2-1.5b", "dbrx-132b"):
+        cfg = smoke(arch)
+        for mesh in (None, (2, 2), (1, 4)):
+            rules = mesh and MeshRules(make_host_mesh(*mesh),
+                                       sequence_parallel=False)
+            params = api.init_params(cfg, torch.Generator().manual_seed(SEED),
+                                     "cpu")
+            eng = ServeEngine(cfg, params, slots=2, max_len=32, page_size=8,
+                              prefill_chunk=8, rules=rules, device="cpu")
+            rs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+            eng.run()
+            eng.assert_no_leaks()
+            key = f"{arch}/{'plain' if mesh is None else mesh}"
+            out[key] = [list(r.out_tokens) for r in rs]
+            if mesh is not None:
+                out[f"{key}/dtensor"] = isinstance(eng.params.embed, DTensor)
+    out["ok"] = True
+    return out
 
 
 def check_built_steps(tmp):
@@ -289,9 +472,12 @@ def check_built_steps(tmp):
 GROUPS = {"mesh": (4, [check_sharded_train_step, check_checkpoint_roundtrip,
                        check_crash_resume_bitwise, check_elastic_reshard,
                        check_reshard_roundtrip,
-                       check_paged_read_refuses_model_sharded_heads]),
+                       check_paged_read_model_sharded_heads]),
           "sequence_parallel": (4, [check_sequence_parallel_train_step]),
-          "steps": (1, [check_engine_under_mesh, check_built_steps])}
+          "steps": (1, [check_engine_under_mesh, check_built_steps]),
+          "families": (4, [*map(_family_check, FAMILIES),
+                           check_moe_groups_over_data,
+                           check_engines_with_rules])}
 
 
 def _rank(rank: int, group: str, store_path: str, out: str) -> None:
@@ -305,8 +491,10 @@ def _rank(rank: int, group: str, store_path: str, out: str) -> None:
     try:
         for check in checks:
             name = check.__name__[len("check_"):]
+            t0 = time.monotonic()
             try:
                 results[name] = check(tmp / name)
+                results[name]["seconds"] = time.monotonic() - t0
             except Exception:
                 results[name] = {"ok": False,
                                  "error": traceback.format_exc()[-3000:]}
