@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, runahead, training, MoE, SSM,
-encoder-decoder and cache-reconfiguration paths and its sweep service on
-one CUDA card and check them.
+encoder-decoder and cache-reconfiguration paths, its sweep service,
+sharding layer and dry run on one CUDA card and check them.
 
     python3 chip_smoke.py
 
@@ -170,7 +170,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     decode steps (bit-identical); whisper-small at full width and depth,
     32 ``build_step`` decode steps on phase 14's B 8 x 4,096 frames'
     cross K/V, teacher-forced with the plain run's greedy tokens
-    (bit-identical).  The group is destroyed at the end of the phase.
+    (bit-identical).
+19. the production-mesh dry run (``repro_torch.launch.dryrun``): (a) in a
+    subprocess with its own time limit and fake 512-rank default group,
+    started beside (b) and (c), ``run_cell`` for qwen2-1.5b x decode_32k
+    x pod16x16 and dbrx-132b (phase 11's 8 layers) x train_4k x
+    pod2x16x16 with ``sequence_parallel`` off (the card's torch refuses a
+    sequence-sharded flatten), printing each cell's per-rank peak GiB,
+    TFLOPs, collective bytes by kind and trace seconds; (b) on the
+    one-rank mesh, ``build_train_step`` of qwen2-1.5b (phase 17's B 4 x
+    S 4,096), dbrx-132b (1 layer, one microbatch, B 1 x S 2,048) and
+    mamba2-2.7b (8 layers, B 4 x S 4,096) traced on meta through
+    ``dryrun.trace_step``, then one step run on the card under the same
+    counters, with the launch counters set to 0 just before and read
+    just after: per-rank FLOPs equal, collective calls by kind equal,
+    each kernel's fake calls equal to its launches, the predicted peak
+    within 25% of ``max_memory_allocated``; (c) each custom op's fake
+    against its kernel at phases 8, 10 and 12's shapes (output shapes,
+    dtypes and strides equal), and each op's eager host µs a call
+    against the direct call of its kernel wrapper.  The group is
+    destroyed at the end of (b, c).
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -255,6 +274,14 @@ MAMBA_TRAIN_BATCHES, MAMBA_TRAIN_S = (4, 2, 1), 4_096
 JAMBA_LAYERS, JAMBA_B, JAMBA_S = 4, 2, 4_096
 FAMILY_DECODE_STEPS = 8
 DIGEST_CHUNK = 2**24
+# phase 19: the dry run's cells on the card machine's torch, in a
+# subprocess of their own (a fake 512-rank default group)
+DRYRUN_CELLS = (("qwen2-1.5b", "decode_32k", False, None, None),
+                ("dbrx-132b", "train_4k", True, {"sequence_parallel": False},
+                 {"n_layers": DBRX_LAYERS}))
+DRYRUN_TIMEOUT_S = 300
+PEAK_GATE = 0.25                 # predicted vs measured peak bytes
+OVERHEAD_CALLS = 200
 
 
 def card_line() -> str:
@@ -3047,6 +3074,270 @@ def phase_families(rules) -> dict:
     return {"launches": total, "dbrx": dbrx, "mamba": mamba}
 
 
+def dryrun_cells(out: str) -> int:
+    """``chip_smoke.py --dryrun-cells OUT``: phase 19's production-mesh
+    cells through ``dryrun.run_cell`` in this process's own fake world,
+    their records written to OUT as JSON.  Touches no card."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+
+    records = []
+    for arch, shape, multi_pod, overrides, cuts in DRYRUN_CELLS:
+        t0 = time.monotonic()
+        rec = dryrun.run_cell(arch, shape, multi_pod, overrides,
+                              cfg_overrides=cuts)
+        rec["seconds"] = time.monotonic() - t0
+        records.append(rec)
+    Path(out).write_text(json.dumps(records))
+    return 0
+
+
+def start_dryrun_cells() -> tuple:
+    """Phase 19 (a), started: the dry run's two cells on this machine's
+    torch, in a subprocess (a process holds one default group, and this
+    one holds phases 17-19's NCCL group) that runs beside (b) and (c)."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    out = tmp / "cells.json"
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dryrun-cells",
+         str(out)], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return proc, tmp, out, time.monotonic()
+
+
+def phase_dryrun_cells(started: tuple) -> dict:
+    """Phase 19 (a), collected within ``DRYRUN_TIMEOUT_S`` of its start:
+    each cell's per-rank peak, TFLOPs, collective bytes by kind and trace
+    seconds."""
+    proc, tmp, out, t0 = started
+    try:
+        try:
+            _, err = proc.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.monotonic() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"phase 19: the dry-run cells took over "
+                                 f"{DRYRUN_TIMEOUT_S} s")
+        if proc.returncode != 0 or not out.exists():
+            raise AssertionError(f"phase 19: the dry-run cells failed (rc "
+                                 f"{proc.returncode}):\n{err[-3000:]}")
+        records = json.loads(out.read_text())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for rec, (arch, shape, _, overrides, cuts) in zip(records, DRYRUN_CELLS):
+        if rec.get("status") != "ok":
+            raise AssertionError(f"phase 19: {arch} x {shape}: {rec}")
+        coll = {k: round(v / 1e9, 3) for k, v in rec["collectives"].items()}
+        why = ("" if not overrides else
+               " (sequence_parallel off: the card's torch refuses to "
+               "flatten a sequence-sharded [B, S, D] for a matmul)")
+        print(f"phase 19: dry run {arch}{'' if not cuts else f' {cuts}'} "
+              f"x {shape} x {rec['mesh']}{why}: {rec['chips']} ranks, per "
+              f"rank peak {rec['peak_device_bytes'] / 2**30:.3f} GiB, "
+              f"{rec['flops'] / 1e12:.3f} TFLOPs, collective GB by kind "
+              f"{json.dumps(coll)} (calls "
+              f"{json.dumps(rec['collective_counts'])}), kernel fakes "
+              f"{json.dumps(rec['kernel_calls'])}; trace "
+              f"{rec['trace_seconds']} s, cell {rec['seconds']:.1f} s on "
+              f"torch {torch.__version__}", flush=True)
+    print(f"phase 19: dry-run subprocess done "
+          f"{time.monotonic() - t0:.1f} s after its start", flush=True)
+    return {f"{r['arch']}__{r['shape']}__{r['mesh']}": {
+        k: r[k] for k in ("peak_device_bytes", "flops", "collectives",
+                          "trace_seconds")} for r in records}
+
+
+# phase 19 (b): (arch, its cuts, the training shape), traced on meta and
+# then run on the card through the same counters
+DRYRUN_CARD = (("qwen2-1.5b", {}, (TRAIN_B, TRAIN_S)),
+               ("dbrx-132b", {"n_layers": 1, "accum_steps": 1},
+                (DBRX_TRAIN_B, DBRX_TRAIN_S)),
+               ("mamba2-2.7b", {"n_layers": 8}, (TRAIN_B, TRAIN_S)))
+
+
+def dryrun_against_card(arch: str, cuts: dict, bs: tuple, rules,
+                        total: dict) -> dict:
+    """One ``build_train_step`` step traced on meta through
+    ``dryrun.trace_step`` (as ``run_cell`` traces), then run for real on
+    the card under the same counters; gates: equal per-rank FLOPs, equal
+    collective calls by kind, each kernel's fake calls equal to its
+    launches, predicted peak bytes within ``PEAK_GATE`` of
+    ``max_memory_allocated``."""
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.launch import dryrun, steps, train_lm
+    from repro_torch.models.types import ShapeConfig
+
+    cfg = dataclasses.replace(registry.get(arch), **cuts)
+    shape = ShapeConfig("train", "train", bs[1], bs[0])
+    built = steps.build_train_step(cfg, shape, rules)
+    pred = dryrun.trace_step(built, dryrun.place(built))
+    del built
+    opt = steps.make_optimizer(cfg)
+    state = train_lm.init_state(cfg, opt, "cuda", seed=0)
+    built = steps.build_train_step(cfg, shape, rules)
+    args = dryrun.place(built, (state, synthetic_batch(cfg, shape, seed=0,
+                                                       step=0)))
+    del state
+    free_card()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Launches(total) as n:
+        t0 = time.perf_counter()
+        real = dryrun.trace_step(built, args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    del args, built
+    free_card()
+    names = {"repro_torch.flash_attention": "flash_attention",
+             "repro_torch.moe_dispatch": "moe_dispatch",
+             "repro_torch.moe_combine": "moe_combine",
+             "repro_torch.ssd_scan": "ssd_scan"}
+    fakes = {names[k]: v for k, v in pred["kernel_calls"].items()}
+    n.expect(f"phase 19: {arch} on the card", **fakes)
+    ratio = pred["peak_device_bytes"] / peak
+    if pred["flops"] != real["flops"] or \
+            pred["collective_counts"] != real["collective_counts"] or \
+            pred["kernel_calls"] != real["kernel_calls"] or \
+            abs(ratio - 1) > PEAK_GATE:
+        raise AssertionError(
+            f"phase 19: {arch} traced on meta vs run on the card: flops "
+            f"{pred['flops']} vs {real['flops']}, collectives "
+            f"{pred['collective_counts']} vs {real['collective_counts']}, "
+            f"kernels {pred['kernel_calls']} vs {real['kernel_calls']}, "
+            f"peak {pred['peak_device_bytes']} vs {peak} (ratio {ratio})")
+    print(f"phase 19: {arch} ({cfg.n_layers} layers) build_train_step at B "
+          f"{bs[0]} x {bs[1]} on the one-rank mesh, traced on meta vs run "
+          f"on the card: FLOPs {pred['flops']:.6e} = {real['flops']:.6e}; "
+          f"collectives {json.dumps(pred['collective_counts'])} equal; "
+          f"kernel fakes {json.dumps(fakes)} = launches {json.dumps(n.n)}; "
+          f"peak predicted {pred['peak_device_bytes'] / 2**30:.3f} GiB vs "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB (ratio "
+          f"{ratio:.4f}, gate {PEAK_GATE}); meta trace "
+          f"{pred['trace_seconds']} s, card step {ms:.1f} ms (under the "
+          f"counters); {card_line()}", flush=True)
+    return {"flops": pred["flops"], "peak_ratio": ratio,
+            "predicted_peak": pred["peak_device_bytes"], "peak": peak,
+            "ms": ms}
+
+
+def layout(out) -> list:
+    outs = out if isinstance(out, tuple) else (out,)
+    return [(tuple(t.shape), t.dtype, t.stride()) for t in outs]
+
+
+def fake_cases() -> dict:
+    """Each custom op's CUDA operands at the shapes phases 8, 10 and 12
+    time, and its non-tensor arguments."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, k, v = (torch.randn(TRAIN_B, 12, TRAIN_S, 128, generator=gen,
+                           device="cuda", dtype=torch.bfloat16)
+               for _ in range(3))
+    slot, n_slots, _ = moe_slots(4096, 1024, 6144, gen)
+    x = torch.randn(4096, 6144, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    ye = torch.randn(n_slots, 6144, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    w = torch.rand(4096, 4, generator=gen, device="cuda")
+    return {"flash_attention": ((q, k, v), (True, None, 0)),
+            "moe_dispatch": ((x, slot), (n_slots,)),
+            "moe_combine": ((ye, slot, w), ()),
+            "ssd_scan": (tuple(ssd_inputs(4, 4096, 80, 64, 128, gen)),
+                         (64, torch.float32))}
+
+
+def op_overhead() -> dict:
+    """Eager host µs a call of each custom op against the direct call of
+    its kernel wrapper, at a decode-sized shape, in turns (op, direct,
+    direct, op), each over ``OVERHEAD_CALLS`` calls ended by a
+    synchronise."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as moe
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    bf = dict(device="cuda", dtype=torch.bfloat16)
+    q, k, v = (torch.randn(8, 12, 64, 128, generator=gen, **bf)
+               for _ in range(3))
+    slot, n_slots, _ = moe_slots(8, 8, 6144, gen)
+    x = torch.randn(8, 6144, generator=gen, **bf)
+    ye = torch.randn(n_slots, 6144, generator=gen, **bf)
+    w = torch.rand(8, 4, generator=gen, device="cuda")
+    xs = ssd_inputs(1, 64, 80, 64, 128, gen)
+    ops = torch.ops.repro_torch
+    pairs = {
+        "flash_attention": (
+            lambda: ops.flash_attention(q, k, v, True, None, 0),
+            lambda: fa.flash_attention(fa_ops._operand(q), fa_ops._operand(k),
+                                       fa_ops._operand(v), causal=True)),
+        "moe_dispatch": (lambda: ops.moe_dispatch(x, slot, n_slots),
+                         lambda: moe.dispatch(x, slot, n_slots)),
+        "moe_combine": (lambda: ops.moe_combine(ye, slot, w),
+                        lambda: moe.combine(ye, slot, w.float())),
+        "ssd_scan": (
+            lambda: ops.ssd_scan(*xs, 64, torch.float32),
+            lambda: ssd.ssd_scan(xs[0], xs[1].float(), xs[2].float(), xs[3],
+                                 xs[4], xs[5].float(),
+                                 out_dtype=torch.float32))}
+
+    def us(fn) -> float:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OVERHEAD_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / OVERHEAD_CALLS * 1e6
+
+    out = {}
+    for name, (op, direct) in pairs.items():
+        a, b, c, d = us(op), us(direct), us(direct), us(op)
+        out[name] = {"op_us": (a + d) / 2, "direct_us": (b + c) / 2}
+    return out
+
+
+def phase_dryrun(cfg, rules) -> dict:
+    """Phase 19 (b) and (c) on the one-rank mesh, and the custom ops'
+    host cost; (a), the production-mesh cells, runs beside them in a
+    subprocess (:func:`start_dryrun_cells`)."""
+    from repro_torch.launch import hlo  # noqa: F401 (the FLOP formulas)
+
+    t0 = time.monotonic()
+    total: dict = {}
+    card = {arch: dryrun_against_card(arch, cuts, bs, rules, total)
+            for arch, cuts, bs in DRYRUN_CARD}
+    fakes = {}
+    for name, (tensors, rest) in fake_cases().items():
+        op = getattr(torch.ops.repro_torch, name)
+        got = op(*tensors, *rest)
+        fake = op(*(t.to("meta") for t in tensors), *rest)
+        torch.cuda.synchronize()
+        if layout(fake) != layout(got):
+            raise AssertionError(f"phase 19: {name}'s fake {layout(fake)} "
+                                 f"!= its kernel's {layout(got)}")
+        fakes[name] = [[list(sh), str(dt), list(st)]
+                       for sh, dt, st in layout(got)]
+        del got
+    print(f"phase 19: each fake's output shape, dtype and strides equal "
+          f"its kernel's at phases 8, 10 and 12's shapes: "
+          f"{json.dumps(fakes)}; {card_line()}", flush=True)
+    free_card()
+    over = op_overhead()
+    print(f"phase 19: custom-op host cost, eager µs a call (op vs direct "
+          f"wrapper call, {OVERHEAD_CALLS} calls, decode-sized shapes): "
+          + "; ".join(f"{k} {v['op_us']:.2f} vs {v['direct_us']:.2f} "
+                      f"(+{v['op_us'] - v['direct_us']:.2f})"
+                      for k, v in over.items()) + f"; {card_line()}",
+          flush=True)
+    print(f"phase 19 (b, c) on the mesh in {time.monotonic() - t0:.1f} s; "
+          f"launches {json.dumps(total)}", flush=True)
+    return {"launches": total, "card": card, "overhead": over}
+
+
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
     from repro_torch.models import api
@@ -3057,6 +3348,8 @@ def api_init(cfg):
 
 def main() -> int:
     start = time.monotonic()
+    if sys.argv[1:2] == ["--dryrun-cells"]:
+        return dryrun_cells(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -3077,7 +3370,7 @@ def main() -> int:
 
 
 def phases(sweep, workers: int, start: float) -> int:
-    """Phases 1-18 (the sweep's pool is already forked)."""
+    """Phases 1-19 (the sweep's pool is already forked)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
 
@@ -3181,7 +3474,13 @@ def phases(sweep, workers: int, start: float) -> int:
         sharded = phase_sharded(cfg, rules)
         free_card()
         families = phase_families(rules)
+        free_card()
+        cells = start_dryrun_cells()
+        dry = phase_dryrun(cfg, rules)
     fam = families["launches"]
+    free_card()
+    dry["cells"] = phase_dryrun_cells(cells)
+    p19 = dry["launches"]
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
@@ -3233,24 +3532,29 @@ def phases(sweep, workers: int, start: float) -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": flash_launches + whisper_launches + sharded["flash"]
-        + fam["flash_attention"],
+        + fam["flash_attention"] + p19["flash_attention"],
         "launches_by_phase": {"9": flash_launches, "14": whisper_launches,
                               "17": sharded["flash"],
-                              "18": fam["flash_attention"]},
-        **flash, "whisper_encoder": whisper_flash})
+                              "18": fam["flash_attention"],
+                              "19": p19["flash_attention"]},
+        **flash, "whisper_encoder": whisper_flash,
+        "custom_op_us": dry["overhead"]["flash_attention"]})
     for name, line in (("moe_dispatch", 45), ("moe_combine", 106)):
         kernels.append({
             "name": name, "route": "cuda", "source": MOE_SOURCE,
             "replaces": f"{MOE_REPLACES}:{line}",
-            "launches": moe_launches[name] + fam[name],
-            "launches_by_phase": {"11": moe_launches[name], "18": fam[name]},
-            **moe_times[name]})
+            "launches": moe_launches[name] + fam[name] + p19[name],
+            "launches_by_phase": {"11": moe_launches[name], "18": fam[name],
+                                  "19": p19[name]},
+            **moe_times[name], "custom_op_us": dry["overhead"][name]})
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
-        "replaces": SSD_REPLACES, "launches": ssd_launches + fam["ssd_scan"],
-        "launches_by_phase": {"13": ssd_launches, "18": fam["ssd_scan"]},
-        **ssd})
-    print(f"phases 1-18 passed in {time.monotonic() - start:.1f} s",
+        "replaces": SSD_REPLACES,
+        "launches": ssd_launches + fam["ssd_scan"] + p19["ssd_scan"],
+        "launches_by_phase": {"13": ssd_launches, "18": fam["ssd_scan"],
+                              "19": p19["ssd_scan"]},
+        **ssd, "custom_op_us": dry["overhead"]["ssd_scan"]})
+    print(f"phases 1-19 passed in {time.monotonic() - start:.1f} s",
           flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

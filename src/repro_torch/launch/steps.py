@@ -23,10 +23,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import Any
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import sharding as shard_ctx
 from repro_torch.models import api
@@ -52,6 +53,26 @@ def _grads(loss: torch.Tensor, leaves) -> tuple:
                  for g, p in zip(grads, leaves))
 
 
+def _microbatches(v: torch.Tensor, accum: int) -> list:
+    """v [B, ...] as ``accum`` microbatches of consecutive rows [B / accum,
+    ...], as the reference splits them.  A batch sharded over the data
+    axes (a DTensor) moves its shards to the next dim first (an
+    all-to-all; a gather where that dim does not divide), is cut there,
+    and each microbatch goes back to the batch's placements: DTensor
+    cannot view a sharded B as [accum, B / accum] when accum is smaller
+    than the axes."""
+    b = v.shape[0]
+    if not isinstance(v, DTensor):
+        return list(v.reshape(accum, b // accum, *v.shape[1:]))
+    mesh, pl = v.device_mesh, list(v.placements)
+    ways = math.prod(mesh.size(i) for i, p in enumerate(pl) if p == Shard(0))
+    apart = Shard(1) if v.ndim > 1 and v.shape[1] % ways == 0 \
+        else Replicate()
+    w = v.redistribute(mesh, [apart if p == Shard(0) else p for p in pl])
+    w = w.reshape(accum, b // accum, *v.shape[1:])
+    return [w[i].redistribute(mesh, pl) for i in range(accum)]
+
+
 def train_step(state: dict, batch: dict, cfg: ModelConfig,
                opt: adamw.AdamWConfig, transform=None, *, device=None):
     """Loss + grads + AdamW update; returns (state, metrics), the state
@@ -68,8 +89,7 @@ def train_step(state: dict, batch: dict, cfg: ModelConfig,
         loss = api.train_loss(params, batch, cfg, device=device)
         grads = _grads(loss, leaves)
     else:
-        micro = {k: v.reshape(accum, v.shape[0] // accum, *v.shape[1:])
-                 for k, v in batch.items()}
+        micro = {k: _microbatches(v, accum) for k, v in batch.items()}
         # laid out as the leaves (a DTensor leaf's placements too)
         grads = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
         losses = []
@@ -105,6 +125,7 @@ class BuiltStep:
     args_abs: tuple           # abstract example args (meta tensors)
     in_shardings: tuple       # their placements (trees of lists)
     rules: MeshRules
+    in_specs: tuple = ()      # their specs (trees of P), for ``reshard``
 
 
 def abstract_state(cfg: ModelConfig, opt: adamw.AdamWConfig) -> dict:
@@ -135,7 +156,7 @@ def build_train_step(cfg: ModelConfig, shape: ShapeConfig, rules: MeshRules,
 
     return BuiltStep(fn, (state_abs, batch_abs),
                      (rules.named(state_specs), rules.named(batch_specs)),
-                     rules)
+                     rules, (state_specs, batch_specs))
 
 
 def build_serve_step(cfg: ModelConfig, shape: ShapeConfig,
@@ -153,15 +174,17 @@ def build_serve_step(cfg: ModelConfig, shape: ShapeConfig,
 
     def fn(params, tokens, cache):
         params = reshard(params, rules, params_specs)
-        tokens = reshard(torch.as_tensor(tokens, device=device), rules,
-                         tokens_spec)
+        if not api.is_meta(tokens):
+            tokens = torch.as_tensor(tokens, device=device)
+        tokens = reshard(tokens, rules, tokens_spec)
         cache = reshard(cache, rules, cache_specs)
         with shard_ctx.constrainer(rules.constrain_fn()):
             return serve_step(params, tokens, cache, cfg)
 
     return BuiltStep(fn, (params_abs, tokens_abs, cache_abs),
                      (rules.named(params_specs), rules.named(tokens_spec),
-                      rules.named(cache_specs)), rules)
+                      rules.named(cache_specs)), rules,
+                     (params_specs, tokens_spec, cache_specs))
 
 
 def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
@@ -181,7 +204,7 @@ def build_prefill_step(cfg: ModelConfig, shape: ShapeConfig,
 
     return BuiltStep(fn, (params_abs, batch_abs),
                      (rules.named(params_specs), rules.named(batch_specs)),
-                     rules)
+                     rules, (params_specs, batch_specs))
 
 
 @dataclasses.dataclass

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch import resolve_device
 
@@ -34,12 +35,21 @@ def abstract_params(cfg: ModelConfig) -> torch.nn.Module:
     return lm.LM(cfg, device=META)
 
 
+def is_meta(t) -> bool:
+    """Whether ``t`` is a meta tensor, or a DTensor of meta shards: an
+    abstract input, which no step moves."""
+    if isinstance(t, DTensor):
+        t = t._local_tensor
+    return isinstance(t, torch.Tensor) and t.is_meta
+
+
 def batch_to(batch: dict, device=None) -> dict:
     """Every array of a batch (numpy or tensor) as a tensor on ``device``
-    (the card when None)."""
+    (the card when None); a meta tensor stays where it is."""
     device = resolve_device(device)
-    return {k: (torch.from_numpy(np.asarray(v)) if isinstance(v, np.ndarray)
-                else v).to(device) for k, v in batch.items()}
+    return {k: v if is_meta(v) else
+            (torch.from_numpy(np.asarray(v)) if isinstance(v, np.ndarray)
+             else v).to(device) for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

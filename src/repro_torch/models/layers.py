@@ -23,6 +23,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from .. import sharding
 from ..kernels.flash_attention import ops as flash_ops
+from ..sharding.rules import even
 from .types import ModelConfig
 
 DEFAULT_SCALE = 0.02
@@ -183,11 +184,16 @@ def _project_qkv(p: Attention, xq: torch.Tensor, xkv: torch.Tensor,
     v = xkv @ p.wv
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    b = xq.shape[0]
-    q = q.reshape(b, xq.shape[1], dims.n_q, dims.d_head).transpose(1, 2)
-    k = k.reshape(b, xkv.shape[1], dims.n_kv, dims.d_head).transpose(1, 2)
-    v = v.reshape(b, xkv.shape[1], dims.n_kv, dims.d_head).transpose(1, 2)
-    return q, k, v
+    return (_split_heads(q, dims.n_q, dims.d_head),
+            _split_heads(k, dims.n_kv, dims.d_head),
+            _split_heads(v, dims.n_kv, dims.d_head))
+
+
+def _split_heads(t: torch.Tensor, heads: int, d_head: int) -> torch.Tensor:
+    """[B,S,H*Dh] -> [B,H,S,Dh] (on a mesh, the feature dim gathered first
+    where its shards would split a head)."""
+    t = sharding.divisible(t, t.ndim - 1, heads)
+    return t.reshape(*t.shape[:2], heads, d_head).transpose(1, 2)
 
 
 def _merge_heads(p: Attention, y: torch.Tensor) -> torch.Tensor:
@@ -197,7 +203,29 @@ def _merge_heads(p: Attention, y: torch.Tensor) -> torch.Tensor:
     DTensor's local one too) leaves as it comes, and the two differ in
     their last bits."""
     b, h, s, d = y.shape
-    return (y.transpose(1, 2).reshape(b * s, h * d) @ p.wo).reshape(b, s, -1)
+    return (_flat_heads(y) @ p.wo).reshape(b, s, -1)
+
+
+def _flat_heads(y: torch.Tensor) -> torch.Tensor:
+    """[B,H,S,Dh] -> [B*S, H*Dh].  On a mesh whose ``model`` axis does not
+    divide the heads (12 over 16), the heads are gathered for the view
+    and the flat feature dim sharded over ``model`` after it, an autograd
+    step of its own: the product's gradient then reaches the view
+    gathered, where DTensor would refuse to view a feature dim sharded 16
+    ways as 12 heads."""
+    b, h, s, d = y.shape
+    if isinstance(y, DTensor) and "model" in (y.device_mesh.mesh_dim_names
+                                              or ()):
+        mesh = y.device_mesh
+        m = mesh.mesh_dim_names.index("model")
+        if h % mesh.size(m) and (h * d) % mesh.size(m) == 0 \
+                and y.placements[m] != Shard(0):
+            y = y.redistribute(mesh, [Replicate() if i == m else p
+                                      for i, p in enumerate(y.placements)])
+            flat = y.transpose(1, 2).reshape(b * s, h * d)
+            return flat.redistribute(mesh, [Shard(1) if i == m else p for
+                                            i, p in enumerate(flat.placements)])
+    return y.transpose(1, 2).reshape(b * s, h * d)
 
 
 def cache_attention(q, k_cache, v_cache, k_positions, q_positions,
@@ -240,17 +268,25 @@ def cache_attention(q, k_cache, v_cache, k_positions, q_positions,
 def _attention_region(fn, q, k, v, *rows):
     """``fn`` on each rank's shards of q [B, Hq, ...], k, v [B, Hkv, ...]
     and of ``rows`` ([B | 1, ...] positions, plain or DTensors): the batch
-    as q's, the heads too where each shard holds whole KV heads (gathered
-    otherwise), everything else replicated (a cache's sequence shards
-    gathered).  The GQA views of attention flatten (B, H), which DTensor
-    (torch 2.11) refuses on a sharded head dim; in the region ``fn`` sees
-    plain tensors."""
+    split where q's or the cache's is (q is small: a decode step's
+    projection may leave it a partial sum over the data axes, and
+    following it would gather the whole cache), the heads too where each
+    shard holds whole KV heads (gathered otherwise), everything else
+    replicated (a cache's sequence shards gathered).  The GQA views of
+    attention flatten (B, H), which DTensor (torch 2.11) refuses on a
+    sharded head dim; in the region ``fn`` sees plain tensors."""
     mesh = q.device_mesh
     b, hkv = q.shape[0], k.shape[1]
     heads = math.prod(mesh.size(i) for i, p in enumerate(q.placements)
                       if p == Shard(1))
-    pl = [p if p == Shard(0) or (p == Shard(1) and hkv % heads == 0)
-          else Replicate() for p in q.placements]
+    kept = (k.placements if isinstance(k, DTensor)
+            else (Replicate(),) * mesh.ndim)
+    pl = [Shard(0) if Shard(0) in (p, c) else
+          p if p == Shard(1) and hkv % heads == 0 else Replicate()
+          for p, c in zip(q.placements, kept)]
+    if b % math.prod(mesh.size(i) for i, p in enumerate(pl)
+                     if p == Shard(0)):
+        pl = [Replicate() if p == Shard(0) else p for p in pl]
     k, v, *rows = (sharding.replicated(t, q) for t in (k, v, *rows))
     row_pls = [[p if p == Shard(0) and r.shape[0] == b else Replicate()
                 for p in pl] for r in rows]
@@ -406,8 +442,29 @@ def blocked_attention(q, k, v, *, causal: bool, window: int | None = None,
     args = (causal, window, q_chunk, k_chunk, q_offset)
     if not isinstance(q, DTensor):
         return _BlockedAttention.apply(q, k, v, *args)
-    return _local_heads(q, lambda q, k, v: _BlockedAttention.apply(
+    pad = _head_padding(q)
+    if pad:
+        q, k, v = (torch.cat([t, torch.zeros_like(t[:, :1]).expand(
+            -1, pad, -1, -1)], dim=1) for t in (q, k, v))
+    y = _local_heads(q, lambda q, k, v: _BlockedAttention.apply(
         q, k, v, *args), q, k, v)
+    return y[:, :hq] if pad else y
+
+
+def _head_padding(q: DTensor) -> int:
+    """Zero heads to add so that ``model`` divides them, where it divides
+    neither the heads nor the batch left over the data axes (qwen2's 12
+    heads over 16 at a prefill's 32 rows): each rank then computes its
+    share of the heads, one real or padded head, where it would otherwise
+    compute every head, as GSPMD pads an uneven shard.  0 elsewhere."""
+    mesh = q.device_mesh
+    if "model" not in (mesh.mesh_dim_names or ()):
+        return 0
+    m = mesh.size(mesh.mesh_dim_names.index("model"))
+    b, h = q.shape[:2]
+    batch = math.prod(mesh.size(i) for i, p in enumerate(q.placements)
+                      if p == Shard(0)) * m
+    return 0 if h % m == 0 or b % batch == 0 else (-h) % m
 
 
 def _local_heads(like: DTensor, fn, *tensors):
@@ -415,8 +472,22 @@ def _local_heads(like: DTensor, fn, *tensors):
     all laid out as ``like``: batch and heads may be sharded, nothing else
     (a sequence shard would need a distributed softmax).  The kernel
     wrappers take plain tensors only; ``local_map`` hands them the local
-    shards, forward and backward, and wraps the result back."""
-    pl = list(like.placements)
+    shards, forward and backward, and wraps the result back.  A dim that
+    its axes do not divide evenly (12 heads over 16) is gathered, and the
+    batch is then split over ``model`` where it divides (the heads where
+    they were padded to divide, :func:`_head_padding`)."""
+    mesh = like.device_mesh
+    pl = even(like.placements, like.shape, mesh.shape)
+    if "model" in (mesh.mesh_dim_names or ()):
+        # heads that "model" does not divide: split the batch over it
+        # instead where the batch divides, so no rank repeats another's
+        m = mesh.mesh_dim_names.index("model")
+        ways = math.prod(mesh.size(i) for i, p in enumerate(pl)
+                         if p == Shard(0)) * mesh.size(m)
+        if pl[m] == Replicate() and like.shape[0] % ways == 0:
+            pl[m] = Shard(0)
+        elif pl[m] == Replicate() and like.shape[1] % mesh.size(m) == 0:
+            pl[m] = Shard(1)                 # heads padded to divide
     for p in pl:
         if isinstance(p, Partial) or (isinstance(p, Shard) and p.dim > 1):
             raise ValueError(f"attention over {pl}: only the batch and head "

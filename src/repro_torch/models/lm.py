@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from .. import sharding
@@ -167,10 +169,26 @@ def forward(params: LM, batch: dict, cfg: ModelConfig,
 def _ce_chunk(xc: torch.Tensor, w_head: torch.Tensor,
               lc: torch.Tensor) -> torch.Tensor:
     logits = sharding.constrain((xc @ w_head).float(), "logits")
-    # the gold logit is read from the whole row: DTensor's vocab-parallel
-    # gather (a masked partial sum) breaks when the chunk is recomputed
-    gold = sharding.gathered(logits).gather(-1, lc[..., None].long())
-    return (torch.logsumexp(logits, dim=-1, keepdim=True) - gold).sum()
+    return (torch.logsumexp(logits, dim=-1, keepdim=True)
+            - _gold(logits, lc)).sum()
+
+
+def _gold(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """The label's logit of each row [..., 1], read from the whole row.
+    On a mesh, in a ``local_map`` region over the logits with the vocab
+    gathered and the rest left sharded: DTensor's vocab-parallel gather
+    (a masked partial sum) breaks when the chunk is recomputed, and its
+    ``gather`` backward makes zeros of the global shape on every rank."""
+    def read(lg, lb):
+        return lg.gather(-1, lb[..., None].long())
+
+    if not isinstance(logits, DTensor):
+        return read(logits, labels)
+    whole = sharding.gathered(logits, -1)
+    pl = list(whole.placements)
+    return local_map(read, out_placements=pl, in_placements=(pl, pl),
+                     device_mesh=whole.device_mesh,
+                     redistribute_inputs=True)(whole, labels)
 
 
 def chunked_cross_entropy(x: torch.Tensor, w_head: torch.Tensor,

@@ -109,9 +109,14 @@ class _Combine(torch.autograd.Function):
         dw = torch.where(kept, (dyf[:, None, :] * ye[safe].float()).sum(-1),
                          0.0)
         contrib = w.float()[..., None] * dyf[:, None, :]          # [T,K,D]
-        dye = torch.zeros(ye.shape, dtype=torch.float32, device=ye.device)
-        dye[safe[kept]] = contrib[kept]
-        return dye.to(ye.dtype), None, dw.to(w.dtype)
+        # dropped choices land on a spare last row: no boolean index, so
+        # the backward traces on meta tensors too
+        n = ye.shape[0]
+        dye = torch.zeros((n + 1, ye.shape[1]), dtype=torch.float32,
+                          device=ye.device)
+        dye.index_copy_(0, torch.where(kept, safe, n).reshape(-1),
+                        contrib.reshape(-1, ye.shape[1]))
+        return dye[:n].to(ye.dtype), None, dw.to(w.dtype)
 
 
 def _route(p: MoE, xt: torch.Tensor, cfg: ModelConfig):

@@ -25,6 +25,7 @@ there, takes the forward's constrainer through ``recompute_contexts``.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Callable
 
@@ -78,11 +79,30 @@ def replicated(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
                               run_check=False)
 
 
-def gathered(t: torch.Tensor) -> torch.Tensor:
-    """A DTensor replicated on its own mesh; a plain tensor as it is."""
+def divisible(t: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """``t`` with ``dim`` still sharded where its ``parts`` (the heads a
+    view splits it into, or merges it from) divide over the mesh axes
+    that shard it, and gathered over those axes elsewhere: DTensor views
+    ``[..., n * d] <-> [..., n, d]`` only when every shard holds whole
+    parts.  A plain tensor as it is."""
     if not isinstance(t, DTensor):
         return t
-    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    mesh = t.device_mesh
+    axes = [i for i, p in enumerate(t.placements) if p == Shard(dim)]
+    if parts % math.prod(mesh.size(i) for i in axes) == 0:
+        return t
+    return t.redistribute(mesh, [Replicate() if i in axes else p
+                                 for i, p in enumerate(t.placements)])
+
+
+def gathered(t: torch.Tensor, dim: int | None = None) -> torch.Tensor:
+    """A DTensor replicated on its own mesh (only over the axes that shard
+    ``dim``, given one); a plain tensor as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if dim is None or p == Shard(dim % t.ndim) else p
+        for p in t.placements])
 
 
 def full(t: torch.Tensor) -> torch.Tensor:

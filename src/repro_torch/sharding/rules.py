@@ -57,6 +57,20 @@ def local_box(shape, mesh, placements) -> list[tuple[int, int]]:
     return [(o, o + n) for o, n in zip(offset, local)]
 
 
+def even(placements, shape, sizes) -> list[Placement]:
+    """``placements`` on a mesh of axis ``sizes`` with every dim that its
+    axes do not divide evenly replicated.  An activation constraint pins
+    these: JAX pads an uneven shard (12 heads over 16), while DTensor's
+    views and ``local_map`` take shards to be even; replicating is the
+    same value, computed on every rank of those axes."""
+    ways: dict[int, int] = {}
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            ways[p.dim] = ways.get(p.dim, 1) * sizes[i]
+    return [Replicate() if isinstance(p, Shard) and shape[p.dim]
+            % ways[p.dim] else p for p in placements]
+
+
 def _axes(entry) -> tuple:
     if entry is None:
         return ()
@@ -255,15 +269,13 @@ class MeshRules:
         def fn(x, kind: str):
             if not isinstance(x, DTensor):
                 return x
-            spec = self.constraint_spec(tuple(x.shape), kind)
-            if spec is None:
-                return x
-            return x.redistribute(x.device_mesh,
-                                  self.placements(spec, x.shape))
+            pl = placements(tuple(x.shape), kind)
+            return x if pl is None else x.redistribute(x.device_mesh, pl)
 
         def placements(shape: tuple, kind: str):
             spec = self.constraint_spec(shape, kind)
-            return None if spec is None else self.placements(spec, shape)
+            return None if spec is None else even(
+                self.placements(spec, shape), shape, self.mesh.shape)
 
         fn.placements = placements      # read by sharding.layout
         return fn

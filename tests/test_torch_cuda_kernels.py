@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import registry
 from repro_torch.core.cgra import cache_grid, presets
 from repro_torch.core.cgra.reconfig import reconfigure, sample_streams
 from repro_torch.core.cgra.trace import KERNELS
@@ -51,6 +52,7 @@ from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.models import layers
 
 pytestmark = pytest.mark.cuda
+ARCHS = registry.list_archs()
 
 
 @pytest.fixture
@@ -991,30 +993,37 @@ def test_ssd_scan_refuses_what_the_kernel_does_not_take(card):
 # the model paths reach the kernels on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["dbrx-132b", "mamba2-2.7b",
-                                  "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_model_paths_launch_the_kernels(card, arch):
-    """Prefill and legacy decode of the smoke arch on the card launch the
-    MoE and SSD kernels and agree with the same model on the CPU (float32:
-    1e-3, kernel and plain version sum in other orders)."""
+    """Prefill at B 2 x S 2,048 and 4 legacy decode steps of each registry
+    arch's smoke model on the card launch the kernels of its layers
+    (flash attention where a layer attends, through blocked attention at
+    that length; MoE dispatch and combine; the SSD scan) and agree with
+    the same model on the CPU (float32: 1e-3, kernel and plain version
+    sum in other orders)."""
     import dataclasses
 
-    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
     from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
     from repro_torch.models import api
+    from repro_torch.models.types import ShapeConfig
 
     cfg = dataclasses.replace(registry.smoke(arch), dtype="float32")
     cpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     gpu = api.init_params(cfg, torch.Generator().manual_seed(0), "cpu") \
         .to(card)
+    batch = synthetic_batch(cfg, ShapeConfig("p", "prefill", 2048, 2),
+                            seed=0, step=0)
+    batch.pop("labels", None)
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size,
-                                            (2, 32)).astype(np.int32)
-    counters = (moe_kernel.dispatch, moe_kernel.combine, ssd_kernel.ssd_scan)
+                                            (2, 8)).astype(np.int32)
+    counters = (fa_kernel.flash_attention, moe_kernel.dispatch,
+                moe_kernel.combine, ssd_kernel.ssd_scan)
     before = [f.launches for f in counters]
     with torch.no_grad():
-        want = api.prefill(cpu, {"tokens": tok}, cfg, device="cpu")
-        got = api.prefill(gpu, {"tokens": tok}, cfg, device=card)
+        want = api.prefill(cpu, batch, cfg, device="cpu")
+        got = api.prefill(gpu, batch, cfg, device=card)
         torch.cuda.synchronize()
         assert (got.cpu() - want).abs().max().item() <= 1e-3
         caches = [api.init_cache(cfg, 2, 8, device=d) for d in ("cpu", card)]
@@ -1023,10 +1032,69 @@ def test_model_paths_launch_the_kernels(card, arch):
                   for m, c in ((cpu, caches[0]), (gpu, caches[1]))]
             assert (lo[1].cpu() - lo[0]).abs().max().item() <= 1e-3
     moved = [f.launches - b for f, b in zip(counters, before)]
-    has_moe = any(s.ffn == "moe" for s in cfg.pattern())
-    has_ssm = any(s.mixer == "ssm" for s in cfg.pattern())
-    assert (moved[0] > 0 and moved[1] > 0) == has_moe
-    assert (moved[2] > 0) == has_ssm
+    pattern = cfg.pattern()
+    has_attn = cfg.family == "encdec" or any(s.mixer == "attn"
+                                             for s in pattern)
+    has_moe = any(s.ffn == "moe" for s in pattern)
+    has_ssm = any(s.mixer == "ssm" for s in pattern)
+    assert (moved[0] > 0) == has_attn
+    assert (moved[1] > 0 and moved[2] > 0) == has_moe
+    assert (moved[3] > 0) == has_ssm
+
+
+# ---------------------------------------------------------------------------
+# the custom ops: each fake against its kernel
+# ---------------------------------------------------------------------------
+
+def _op_cases(card):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd_kernel
+
+    gen = torch.Generator(device=card).manual_seed(7)
+    bf = dict(device=card, dtype=torch.bfloat16)
+    q, k, v = (torch.randn(2, 4, 256, 128, generator=gen, **bf)
+               for _ in range(3))
+    x = torch.randn(64, 128, generator=gen, **bf)
+    slot = torch.randperm(64, device=card, generator=gen)[:64].reshape(
+        16, 4).to(torch.int32)
+    return {
+        "flash_attention": ((q, k, v), (True, 96, 0),
+                            fa_kernel.flash_attention),
+        "moe_dispatch": ((x[:16], slot, 64), (), moe_kernel.dispatch),
+        "moe_combine": ((x, slot, torch.rand(16, 4, generator=gen,
+                                             device=card)), (),
+                        moe_kernel.combine),
+        "ssd_scan": (tuple(_ssd_inputs(2, 128, 2, 64, 128, torch.bfloat16,
+                                       card)), (64, torch.float32),
+                     ssd_kernel.ssd_scan)}
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "moe_dispatch",
+                                  "moe_combine", "ssd_scan"])
+def test_custom_op_fake_matches_its_kernel(card, name):
+    """The op on CUDA tensors launches the kernel once; its fake, on meta
+    tensors and under FakeTensorMode, gives the same output shapes,
+    dtypes and strides and launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    tensors, rest, kernel_fn = _op_cases(card)[name]
+    args = [t for t in tensors if isinstance(t, torch.Tensor)]
+    extra = [t for t in tensors if not isinstance(t, torch.Tensor)]
+    op = getattr(torch.ops.repro_torch, name)
+    before = kernel_fn.launches
+    got = op(*args, *extra, *rest)
+    torch.cuda.synchronize()
+    assert kernel_fn.launches == before + 1
+    meta = op(*(t.to("meta") for t in args), *extra, *rest)
+    with FakeTensorMode() as mode:
+        fake = op(*(mode.from_tensor(t) for t in args), *extra, *rest)
+
+    def layout(out):
+        outs = out if isinstance(out, tuple) else (out,)
+        return [(tuple(t.shape), t.dtype, t.stride()) for t in outs]
+
+    assert layout(meta) == layout(fake) == layout(got)
+    assert kernel_fn.launches == before + 1
 
 
 def test_encdec_path_launches_flash_once_an_encoder_layer(card):

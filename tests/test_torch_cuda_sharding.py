@@ -72,6 +72,38 @@ def test_kernel_wrappers_refuse_a_cuda_dtensor(nccl_mesh, name, monkeypatch):
         WRAPPERS[name](lambda t: _on_mesh(nccl_mesh, t.cuda()))
 
 
+@pytest.mark.parametrize("name", ["flash_attention", "moe_dispatch",
+                                  "moe_combine", "ssd_scan"])
+def test_custom_ops_refuse_a_cuda_dtensor(nccl_mesh, name, monkeypatch):
+    """The ops-level wrapper refuses a CUDA DTensor with TypeError; the
+    custom op itself, called directly, raises (DTensor has no sharding
+    rule for it) before any kernel launches or reads a pointer."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.moe_dispatch import ops as moe_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from test_torch_cuda_kernels import _op_cases
+
+    def read(self):
+        raise AssertionError("a DTensor's data_ptr() was read")
+
+    tensors, rest, kernel_fn = _op_cases(torch.device("cuda"))[name]
+    d = [_on_mesh(nccl_mesh, t) if isinstance(t, torch.Tensor) else t
+         for t in tensors]
+    wrapper = {"flash_attention": lambda: fa_ops.attention(*d[:3]),
+               "moe_dispatch": lambda: moe_ops.dispatch(d[0], d[1],
+                                                        n_slots=d[2]),
+               "moe_combine": lambda: moe_ops.combine(*d),
+               "ssd_scan": lambda: ssd_ops.ssd(*d)}[name]
+    monkeypatch.setattr(DTensor, "data_ptr", read)
+    before = kernel_fn.launches
+    with pytest.raises(TypeError, match="DTensor"):
+        wrapper()
+    with pytest.raises(Exception) as err:
+        getattr(torch.ops.repro_torch, name)(*d, *rest)
+    assert not isinstance(err.value, AssertionError), err.value
+    assert kernel_fn.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_flash_site_in_local_map_equals_the_plain_call(nccl_mesh, dtype):
     """blocked_attention on DTensors at (1, 1) under the rules' constraints:

@@ -5,8 +5,8 @@ Run by tests/test_torch_host_mesh.py and tests/test_torch_mesh_steps.py:
 
     python tests/torch_host_mesh_checks.py --group mesh --out result.json
 
-spawns the group's ranks (4 for ``mesh``, ``sequence_parallel`` and
-``families``, 1 for ``steps``) that meet through a ``FileStore`` next to
+spawns the group's ranks (4 for ``mesh``, ``sequence_parallel``,
+``families`` and ``dryrun``, 1 for ``steps``) that meet through a ``FileStore`` next to
 ``--out`` (no TCP
 port, so several runs can go at once), runs the group's checks on all
 ranks, and has rank 0 write one JSON object,
@@ -468,6 +468,74 @@ def check_built_steps(tmp):
     return out
 
 
+def check_dryrun_traces(tmp):
+    """dbrx, mamba2 and whisper (the families group's cuts): one sharded
+    training step at (2, 2) run for real under ``dryrun.trace_step``'s
+    counters, for the test to hold rank 0's per-rank FLOPs and
+    collectives against the same step traced on meta over a fake world
+    (tests/torch_dryrun_checks.py).  The batch takes the dtypes of
+    ``input_specs``, as the traced step's does."""
+    from repro_torch.launch import dryrun
+    rules = MeshRules(make_host_mesh(2, 2), sequence_parallel=False)
+    out = {}
+    for name in ("dbrx", "mamba2", "whisper"):
+        arch, changes = FAMILIES[name]
+        cfg = smoke(arch, **changes)
+        built = steps.build_train_step(cfg, SHAPE, rules)
+        state = reshard_state(plain_state(cfg), rules)
+        specs = api.input_specs(cfg, SHAPE)
+        batch = {k: torch.as_tensor(v).to(specs[k].dtype)
+                 for k, v in batch_fn(cfg)(0).items()}
+        rec = dryrun.trace_step(built, (state, batch))
+        out[name] = {k: rec[k] for k in ("flops", "collectives",
+                                         "collective_counts",
+                                         "kernel_calls")}
+    out["ok"] = True
+    return out
+
+
+def check_attention_layouts(tmp):
+    """Blocked attention and the head merge (``layers._flat_heads`` and
+    the output product) on DTensors at (1, 4) under the rules, 6 query
+    heads over "model" 4, forward and gradients against the plain call:
+    at B 2 the heads are padded to 8 (``layers._head_padding``), at B 4
+    the batch is split over "model" instead."""
+    from repro_torch.models import layers
+    rules = MeshRules(make_host_mesh(1, 4), sequence_parallel=False)
+    mesh, out = rules.mesh, {}
+    h, hkv, s, d = 6, 2, 64, 16
+    for name, b in (("padded_heads", 2), ("batch_over_model", 4)):
+        gen = torch.Generator().manual_seed(b)
+        ins = [torch.randn(b, n, s, d, generator=gen)
+               for n in (h, hkv, hkv)] + [torch.randn(h * d, 32,
+                                                      generator=gen)]
+        dy = torch.randn(b * s, 32, generator=gen)
+
+        def run(*ins):
+            q, k, v, wo = (t.detach().requires_grad_(True) for t in ins)
+            y = layers.blocked_attention(q, k, v, causal=True, q_chunk=16,
+                                         k_chunk=32)
+            o = layers._flat_heads(y) @ wo
+            return o, torch.autograd.grad(o, (q, k, v, wo),
+                                          sharding.replicated(dy, o))
+
+        want, grads = run(*ins)
+        rep = [Replicate(), Replicate()]
+        with sharding.constrainer(rules.constrain_fn()):
+            got, grads_d = run(*(distribute_tensor(t, mesh, rep,
+                                                   src_data_rank=None)
+                                 for t in ins))
+        out[name] = {
+            "pad": layers._head_padding(distribute_tensor(
+                ins[0], mesh, rep, src_data_rank=None)),
+            "err": float((full(got) - want).abs().max()),
+            "scale": float(want.abs().max()),
+            "grad_rel": max(float((full(g) - w).norm() / w.norm())
+                            for g, w in zip(grads_d, grads))}
+    out["ok"] = True
+    return out
+
+
 # name: (world size, checks), one subprocess each
 GROUPS = {"mesh": (4, [check_sharded_train_step, check_checkpoint_roundtrip,
                        check_crash_resume_bitwise, check_elastic_reshard,
@@ -477,7 +545,8 @@ GROUPS = {"mesh": (4, [check_sharded_train_step, check_checkpoint_roundtrip,
           "steps": (1, [check_engine_under_mesh, check_built_steps]),
           "families": (4, [*map(_family_check, FAMILIES),
                            check_moe_groups_over_data,
-                           check_engines_with_rules])}
+                           check_engines_with_rules]),
+          "dryrun": (4, [check_dryrun_traces, check_attention_layouts])}
 
 
 def _rank(rank: int, group: str, store_path: str, out: str) -> None:
