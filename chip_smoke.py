@@ -189,7 +189,36 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     against its kernel at phases 8, 10 and 12's shapes (output shapes,
     dtypes and strides equal), and each op's eager host µs a call
     against the direct call of its kernel wrapper.  The group is
-    destroyed at the end of (b, c).
+    destroyed at the end of (b, c);
+20. serve and train, at published width and with every kernel counter
+    set to 0 just before each run and read just after, the five archs
+    that no earlier phase ran at their own head geometry, and train
+    whisper: internlm2-1.8b at full depth (``ServeEngine`` on phase 4's
+    first 4 prompts, 32 greedy tokens each: 4/4 finished, 0 page leaks,
+    paged = decode steps x 24; 2 ``train_step``s at B 4 x S 4,096, flash
+    = 2 x 24 x 2, step 0 within 2e-2 of the loss through the flash
+    kernel's plain version); phi3-medium-14b served at its 40 layers
+    (10 KV heads) and trained at 8 (B 2, its 2 microbatches);
+    h2o-danube-1.8b at full depth: prefill at B 2 x S 8,192 past its
+    4,096 window (24 flash launches on the scalar route, the kernel timed
+    there against its plain version, SDPA and the bound), 8 greedy
+    lockstep decode steps on its ring cache, 2 training steps, and in
+    float32 at 2 layers prefill vs 5,120 decode steps within 1e-3 of the
+    logit std; llama4-scout-17b-a16e served at 8 of 48 layers (top-1
+    routing and a shared expert; dispatch = combine = 8 x (decode steps +
+    prefill chunks)), its MoE kernels against their plain versions in
+    float32 at 2 layers (1e-4 of the logit std) and trained at 1 layer,
+    B 1 x S 2,048; internvl2-76b served on token prompts at 24 of 80
+    layers and trained at 4 on embeddings inputs with bf16 moments and 4
+    microbatches; whisper-small's ``encdec_loss`` through 2 training
+    steps at the largest of B 8, 4, 2 x 4,096 frames that fits, flash =
+    steps x 12 x 2, step 0 within 2e-2 of the plain-attention loss.  For
+    each of the four token archs (``TOKEN_ARCHS``), phase 5's float32
+    gate at 2 layers (the paged kernel's read within 5e-2 of the gather
+    read, greedy streams equal) and the flash kernel against its plain
+    version at the training step's attention shape.  Each arch prints its
+    parameters, peak memory, step times, tokens/s and the bf16 logit gap
+    of its kernel path against the plain one.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -282,6 +311,24 @@ DRYRUN_CELLS = (("qwen2-1.5b", "decode_32k", False, None, None),
 DRYRUN_TIMEOUT_S = 300
 PEAK_GATE = 0.25                 # predicted vs measured peak bytes
 OVERHEAD_CALLS = 200
+# phase 20: the five archs served and trained at their own width (depths
+# reckoned at bf16 weights and 12 B a trained parameter; internvl2 8 with
+# its bf16 moments, + 4 for its f32 accumulators), and whisper's training
+# at the largest batch that fits
+# token archs: name, served and trained layers (None: all), training
+# B x S, microbatches (None: the arch's own) and whether step 0 is held
+# against the plain attention
+TOKEN_ARCHS = (
+    ("internlm2-1.8b", None, None, (TRAIN_B, TRAIN_S), None, True),
+    ("phi3-medium-14b", None, 8, (2, TRAIN_S), None, False),
+    # one microbatch: llama4's own 2 would leave B 1 nothing to split
+    ("llama4-scout-17b-a16e", 8, 1, (DBRX_TRAIN_B, DBRX_TRAIN_S), 1, False),
+    ("internvl2-76b", 24, 4, (TRAIN_B, TRAIN_S), None, False),
+)
+READ_CHECK_LAYERS = 2              # the float32 kernel-vs-gather read gate
+DANUBE_B, DANUBE_S = 2, 8_192      # past the 4,096 window, so it masks
+DANUBE_CHECK_S = 5_120             # f32 prefill vs decode past the window
+WHISPER_TRAIN_BATCHES = (8, 4, 2)
 
 
 def card_line() -> str:
@@ -563,28 +610,43 @@ def read_paths(cfg, params, prompt) -> dict:
                 streams_equal=tk == tg, logit_std=float(lk.std()))
 
 
+def read_prompt(cfg) -> list:
+    """Phase 5's 200-token greedy prompt."""
+    return np.random.default_rng(1).integers(0, cfg.vocab_size,
+                                             size=200).tolist()
+
+
+def f32_read_gate(cfg, prompt) -> dict:
+    """Kernel read vs gather read in float32 on fresh weights from seed 0:
+    within 5e-2 over the positions both streams share, and equal greedy
+    streams."""
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    f32_params = api_init(f32_cfg)
+    f32 = read_paths(f32_cfg, f32_params, prompt)
+    del f32_params
+    free_card()
+    if f32["err"] > 5e-2 or not f32["streams_equal"]:
+        raise AssertionError(f"{cfg.name} ({cfg.n_layers} layers) float32 "
+                             f"kernel vs gather logits differ by "
+                             f"{f32['err']}; streams equal "
+                             f"{f32['streams_equal']}")
+    return f32
+
+
 def phase_reads(cfg, params) -> None:
     """Kernel read vs gather read at full width.  The 5e-2 check is made in
     float32: in bfloat16 the two reads round differently (the kernel keeps
     P.V in float32, the gather path casts P to bfloat16 as the reference
     does) and the random-weight 28-layer model amplifies that to logit
     differences near 0.1, which the bfloat16 line reports without a bound."""
-    prompt = np.random.default_rng(1).integers(0, cfg.vocab_size,
-                                                size=200).tolist()
+    prompt = read_prompt(cfg)
     bf16 = read_paths(cfg, params, prompt)
     print(f"phase 5: bfloat16 kernel vs gather read, 200-token greedy "
           f"prompt: max abs logit diff {bf16['err']:.3e} over "
           f"{bf16['positions']} positions (logit std "
           f"{bf16['logit_std']:.3f}); streams equal {bf16['streams_equal']}",
           flush=True)
-    f32_cfg = dataclasses.replace(cfg, dtype="float32")
-    f32_params = api_init(f32_cfg)
-    f32 = read_paths(f32_cfg, f32_params, prompt)
-    del f32_params
-    if f32["err"] > 5e-2 or not f32["streams_equal"]:
-        raise AssertionError(f"float32 kernel vs gather logits differ by "
-                             f"{f32['err']}; streams equal "
-                             f"{f32['streams_equal']}")
+    f32 = f32_read_gate(cfg, prompt)
     print(f"phase 5: float32 kernel vs gather read, same prompt and seed: "
           f"max abs logit diff {f32['err']:.3e} over {f32['positions']} "
           f"positions (tol 5e-2); streams equal {f32['streams_equal']}",
@@ -1528,21 +1590,21 @@ def serve_logits(cfg, params) -> tuple:
     return runs
 
 
-def phase_moe_logits(cfg, params) -> str:
+def phase_moe_logits(cfg, params, phase: str = "11") -> str:
     """Kernel vs plain MoE path at one prefill chunk and one decode step:
     bf16 at the served depth (reported), float32 at 2 layers (gated at
     1e-4 of the logit std)."""
     (kc, kd), (pc, pd) = serve_logits(cfg, params)
     bf16 = max((kc - pc).abs().max().item(), (kd - pd).abs().max().item())
     std = kd.std().item()
-    print(f"phase 11: bfloat16 {cfg.n_layers} layers, MoE kernels vs plain "
-          f"versions: max abs logit diff {bf16:.3e} over one 64-token "
-          f"prefill chunk and one 8-slot decode step (logit std "
+    print(f"phase {phase}: {cfg.name} bfloat16 {cfg.n_layers} layers, MoE "
+          f"kernels vs plain versions: max abs logit diff {bf16:.3e} over "
+          f"one 64-token prefill chunk and one 8-slot decode step (logit std "
           f"{std:.4f})", flush=True)
     return f"{bf16:.3e}"
 
 
-def phase_moe_logits_f32(cfg) -> None:
+def phase_moe_logits_f32(cfg, phase: str = "11") -> None:
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     params = api_init(cfg2)
     (kc, kd), (pc, pd) = serve_logits(cfg2, params)
@@ -1552,9 +1614,9 @@ def phase_moe_logits_f32(cfg) -> None:
     if not (math.isfinite(err) and err <= 1e-4 * std):
         raise AssertionError(f"float32 MoE kernel vs plain logits differ by "
                              f"{err} (> 1e-4 x logit std {std})")
-    print(f"phase 11: float32 2 layers, MoE kernels vs plain versions: max "
-          f"abs logit diff {err:.3e} (tol 1e-4 x logit std {std:.4f} = "
-          f"{1e-4 * std:.3e})", flush=True)
+    print(f"phase {phase}: {cfg.name} float32 2 layers, MoE kernels vs "
+          f"plain versions: max abs logit diff {err:.3e} (tol 1e-4 x logit "
+          f"std {std:.4f} = {1e-4 * std:.3e})", flush=True)
 
 
 def ssd_inputs(b, s, h, p, n, gen) -> list:
@@ -1833,50 +1895,78 @@ def whisper_prefill_vs_decode(params, cfg, batch: dict
     return (lo - want).abs().max().item(), want.std().item()
 
 
-def whisper_flash_times(cfg, flush: torch.Tensor) -> dict:
-    """The flash kernel at whisper's encoder self-attention (B 8 x H 12 x
-    S 4,096 x D 64, bf16, non-causal) against its plain version, SDPA and
-    the bound: 4 D flops for each of the S^2 (query, key) pairs at 989
+def flash_times(phase: str, what: str, shape: tuple, flush: torch.Tensor,
+                *, causal: bool, window: int | None = None, seed: int,
+                iters: int = 50, plain_iters: int = 10) -> dict:
+    """The flash kernel at one model's attention shape (B, H, S, D; bf16)
+    against its plain version (y 3e-2, lse 1e-4, and elementwise against
+    the kernel-order plain version), SDPA with the same mask and the
+    bound: 4 D flops for each (query, key) pair the mask keeps at 989
     TFLOP/s, or q, k, v read and y, the f32 lse written once."""
     from repro_torch.kernels.flash_attention import flash_attention as kernel
-    from repro_torch.kernels.flash_attention import ref
+    from repro_torch.kernels.flash_attention import ops, ref
 
-    b, h, s, d = WHISPER_B, cfg.n_heads, WHISPER_FRAMES, cfg.head_dim
-    gen = torch.Generator(device="cuda").manual_seed(14)
+    b, h, s, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(b, h, s, d, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
-    y, lse = kernel.flash_attention(q, k, v, causal=False)
-    want_y, want_lse = ref.attention_ref(q, k, v, causal=False)
+    mask = dict(causal=causal, window=window)
+    y, lse = kernel.flash_attention(q, k, v, **mask)
+    want_y, want_lse = ref.attention_ref(q, k, v, **mask)
     err = (y.float() - want_y.float()).abs().max().item()
     lse_err = (lse - want_lse).abs().max().item()
     del want_y, want_lse
     if not (err <= TOL[torch.bfloat16] and lse_err <= 1e-4):
-        raise AssertionError(f"flash_attention at whisper's encoder shape: "
-                             f"y err {err}, lse err {lse_err}")
-    tiled = tiled_gate(y, q, k, v, False, None, 0, "whisper encoder")
-    ms = time_ms(lambda: kernel.flash_attention(q, k, v, causal=False),
-                 flush)
-    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, causal=False),
-                       flush, iters=10)
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v),
-        flush)
-    flops = 4 * b * h * d * s * s
+        raise AssertionError(f"flash_attention at {what}: y err {err}, lse "
+                             f"err {lse_err}")
+    tiled = tiled_gate(y, q, k, v, causal, window, 0, what)
+    del y, lse
+    ms = time_ms(lambda: kernel.flash_attention(q, k, v, **mask), flush,
+                 iters)
+    plain_ms = time_ms(lambda: ref.attention_ref(q, k, v, **mask), flush,
+                       iters=plain_iters)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if window is None:
+        library_ms = time_ms(lambda: sdpa(q, k, v, is_causal=causal), flush,
+                             iters)
+    else:
+        pos = torch.arange(s, device="cuda")
+        keep = (pos[:, None] - pos[None, :] < window) \
+            & ((pos[:, None] >= pos[None, :]) if causal else True)
+        library_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=keep), flush,
+                             iters)
+        del keep
+    flops = 4 * b * h * d * ops.kept_pairs(s, s, causal, window, 0)
     n_bytes = 4 * b * h * s * d * q.element_size() + 4 * b * h * s
     t_ops = flops / BF16_FLOPS_PER_S * 1e3
     t_bytes = n_bytes / MEM_BYTES_PER_S * 1e3
     bound, by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                       else "bytes")
-    print(f"phase 14: flash_attention bfloat16 at whisper's encoder shape "
-          f"(B {b}, H {h}, S {s}, D {d}, non-causal; route "
-          f"{kernel.route(q.dtype, d)}): y max abs err {err:.3e} (tol "
+    route = kernel.route(q.dtype, d)
+    print(f"phase {phase}: flash_attention bfloat16 at {what} (B {b}, H {h}, "
+          f"S {s}, D {d}, {'causal' if causal else 'non-causal'}"
+          + (f", window {window}" if window is not None else "")
+          + f"; route {route}): y max abs err {err:.3e} (tol "
           f"{TOL[torch.bfloat16]}), lse {lse_err:.3e} (tol 1e-4){tiled}; "
           f"ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-          f"{library_ms:.4f} (SDPA) bound_ms={bound:.4f} ({flops} flops, "
-          f"{n_bytes} bytes) {by}-bound: {flops / ms / 1e9:.1f} TFLOP/s = "
-          f"{bound / ms:.1%} of the bound; {card_line()}", flush=True)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+          f"{library_ms:.4f} (SDPA"
+          + (", boolean mask" if window is not None else "")
+          + f") bound_ms={bound:.4f} ({flops} flops, {n_bytes} bytes) "
+          f"{by}-bound: {flops / ms / 1e9:.1f} TFLOP/s = {bound / ms:.1%} "
+          f"of the bound; {card_line()}", flush=True)
+    del q, k, v
+    free_card()
+    return dict(route=route, shape=list(shape), window=window,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
                 bound_by=by, library_ms=library_ms)
+
+
+def whisper_flash_times(cfg, flush: torch.Tensor) -> dict:
+    """The flash kernel at whisper's encoder self-attention (B 8 x H 12 x
+    S 4,096 x D 64, non-causal)."""
+    return flash_times("14", "whisper's encoder shape", (
+        WHISPER_B, cfg.n_heads, WHISPER_FRAMES, cfg.head_dim), flush,
+        causal=False, seed=14)
 
 
 def phase_whisper(cfg, flush: torch.Tensor) -> tuple[int, dict]:
@@ -2507,6 +2597,16 @@ def sharded_train(cfg, rules, sharded: bool) -> tuple[list, list, list]:
     return losses, ms, leaves
 
 
+def first_prompts(cfg) -> tuple[list, list]:
+    """Phase 4's first 4 prompts, drawn in ``cfg``'s vocabulary: (their
+    lengths, the prompts)."""
+    rng = np.random.default_rng(0)
+    lens = rng.integers(32, 385, size=12)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in lens][:SHARDED_REQUESTS]
+    return lens[:SHARDED_REQUESTS].tolist(), prompts
+
+
 def sharded_serve(cfg, params, prompts, rules, counters=None) -> dict:
     """Greedy requests through the engine (with ``rules``: params placed
     on the mesh in place, cache replicated there); the launch counters
@@ -2614,10 +2714,7 @@ def phase_sharded(cfg, rules) -> dict:
           f"{flash} = {SHARDED_STEPS} steps x {cfg.n_layers} layers x 2; "
           f"{card_line()}", flush=True)
 
-    rng = np.random.default_rng(0)          # phase 4's prompts
-    lens = rng.integers(32, 385, size=12)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
-               for n in lens][:SHARDED_REQUESTS]
+    lens, prompts = first_prompts(cfg)
     params = api_init(cfg)
     plain = sharded_serve(cfg, params, prompts, None)
     mesh = sharded_serve(cfg, params, prompts, rules)
@@ -2633,7 +2730,7 @@ def phase_sharded(cfg, rules) -> dict:
                              f"mesh ({mesh['dtensor']} params)")
     print(f"phase 17: ServeEngine with rules ({mesh['dtensor']} params "
           f"by param_specs, replicated pools) vs without: "
-          f"{SHARDED_REQUESTS} greedy requests of {lens[:4].tolist()} "
+          f"{SHARDED_REQUESTS} greedy requests of {lens} "
           f"tokens, 32 new each: tokens equal; decode-step ms mean "
           f"{statistics.mean(mesh['decode_ms']):.3f} (median "
           f"{statistics.median(mesh['decode_ms']):.3f}) vs plain "
@@ -2757,10 +2854,13 @@ def family_train(cfg, shape, rules, sharded: bool, total: dict) -> dict:
     peak = torch.cuda.max_memory_allocated()
     weights = digest_weights()
     digests = [leaf_digest(t, weights) for t in state_leaves(state)]
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    moments = sorted({str(t.dtype) for t in state["m"].values()})
     del state, metrics, weights
     free_card()
     return {"losses": losses, "ms": ms, "launches": n.n, "routes": n.routes,
-            "peak": peak, "digests": digests}
+            "peak": peak, "digests": digests, "params": n_params,
+            "moments": moments}
 
 
 def train_gates(cfg, shape, mesh: dict, plain: dict, **want) -> str:
@@ -2836,10 +2936,7 @@ def dbrx_family(rules, total: dict) -> dict:
     from repro_torch.models.types import ShapeConfig
 
     cfg = dataclasses.replace(registry.get("dbrx-132b"), n_layers=DBRX_LAYERS)
-    rng = np.random.default_rng(0)          # phase 11's (phase 4's) prompts
-    lens = rng.integers(32, 385, size=12)
-    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
-               for n in lens][:SHARDED_REQUESTS]
+    lens, prompts = first_prompts(cfg)      # phase 11's (phase 4's)
     counters = {k: fn for k, fn in kernel_counters().items()
                 if k in ("paged_attention", "moe_dispatch", "moe_combine")}
     params = api_init(cfg)
@@ -2861,7 +2958,7 @@ def dbrx_family(rules, total: dict) -> dict:
         total[k] = total.get(k, 0) + v
     print(f"phase 18: {cfg.name} ({cfg.n_layers} of 40 layers) ServeEngine "
           f"with rules vs without, {len(prompts)} greedy requests of "
-          f"{lens[:len(prompts)].tolist()} tokens (phase 11's first), 32 "
+          f"{lens} tokens (phase 11's first), 32 "
           f"new each: tokens equal; decode-step ms "
           f"mean {statistics.mean(mesh['decode_ms']):.3f} (median "
           f"{statistics.median(mesh['decode_ms']):.3f}) vs plain "
@@ -3338,6 +3435,389 @@ def phase_dryrun(cfg, rules) -> dict:
     return {"launches": total, "card": card, "overhead": over}
 
 
+class _PlainFlash:
+    """Stands in for the flash kernel module inside ``ops``: the plain
+    version, on the same tensors."""
+
+    @staticmethod
+    def flash_attention(q, k, v, **mask):
+        from repro_torch.kernels.flash_attention import ref
+        return ref.attention_ref(q, k, v, **mask)
+
+
+@contextlib.contextmanager
+def plain_flash():
+    """Every flash launch inside the block replaced by its plain version
+    (the blocked attention's forward through ``ref.attention_ref``)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    kernel = flash_ops.kernel
+    flash_ops.kernel = _PlainFlash()
+    try:
+        yield
+    finally:
+        flash_ops.kernel = kernel
+
+
+def arch_line(cfg, n_params: int, what: str) -> None:
+    print(f"phase 20: {cfg.name} at full width, {what} (d {cfg.d_model}, "
+          f"heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}"
+          + (f", {cfg.n_experts} experts top-{cfg.top_k} + "
+             f"{cfg.n_shared_experts} shared" if cfg.n_experts else "")
+          + (f", window {cfg.window}" if cfg.attention_kind == "swa" else "")
+          + f", {cfg.dtype}): {n_params} random parameters (seed 0)",
+          flush=True)
+
+
+def arch_serve(cfg, params, total: dict) -> None:
+    """Phase 4's first 4 prompts, greedy, 32 new tokens each, through the
+    ``ServeEngine`` with every kernel counter set to 0 just before the
+    measured run and read just after: 4/4 requests, 0 page leaks, paged
+    launches = decode steps x layers, dispatch = combine = MoE layers x
+    (decode steps + prefill chunks), nothing else."""
+    lens, prompts = first_prompts(cfg)
+    counters = kernel_counters()
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    run = sharded_serve(cfg, params, prompts, None, counters)
+    peak = torch.cuda.max_memory_allocated()
+    steps_, chunks = run["decode_steps"], len(run["prefill_ms"])
+    n_moe = sum(spec.ffn == "moe" for spec in cfg.pattern()) * cfg.n_groups
+    want = {k: 0 for k in counters}
+    want.update(paged_attention=steps_ * cfg.n_layers,
+                moe_dispatch=n_moe * (steps_ + chunks),
+                moe_combine=n_moe * (steps_ + chunks))
+    if run["launches"] != want or 0 in (want["paged_attention"], steps_):
+        raise AssertionError(f"{cfg.name} served: launches "
+                             f"{run['launches']} != {want} for {steps_} "
+                             f"decode steps and {chunks} prefill chunks")
+    for k, v in run["launches"].items():
+        total[k] = total.get(k, 0) + v
+    tokens = sum(len(t) for t in run["tokens"])
+    print(f"phase 20: {cfg.name} ({cfg.n_layers} layers) ServeEngine, "
+          f"{len(prompts)} greedy requests of {lens} tokens (phase 4's "
+          f"first), 32 new each: {len(prompts)}/{len(prompts)} finished, "
+          f"{tokens} tokens; decode-step ms mean "
+          f"{statistics.mean(run['decode_ms']):.3f} (median "
+          f"{statistics.median(run['decode_ms']):.3f}) over {steps_}; "
+          f"prefill-chunk ms mean {statistics.mean(run['prefill_ms']):.3f} "
+          f"over {chunks}; peak memory {peak / 2**30:.3f} GiB; launches "
+          f"{json.dumps(run['launches'])} (paged = {steps_} decode steps x "
+          f"{cfg.n_layers} layers"
+          + (f"; dispatch = combine = {n_moe} x ({steps_} + {chunks})"
+             if n_moe else "") + f"); page leaks 0; {card_line()}",
+          flush=True)
+
+
+def arch_read_gap(cfg, params) -> None:
+    """The bf16 logit gap of the kernel read against the gather read on
+    phase 5's prompt (reported)."""
+    gap = read_paths(cfg, params, read_prompt(cfg))
+    print(f"phase 20: {cfg.name} bfloat16 kernel vs gather read, 200-token "
+          f"greedy prompt, 8 new: max abs logit diff {gap['err']:.3e} over "
+          f"{gap['positions']} positions (logit std {gap['logit_std']:.3f}); "
+          f"streams equal {gap['streams_equal']}", flush=True)
+
+
+def arch_read_gate(cfg) -> None:
+    """Phase 5's float32 gate at the arch's head geometry, cut to
+    ``READ_CHECK_LAYERS`` layers: the paged kernel's read against the
+    gather read within 5e-2, greedy streams equal."""
+    cut = dataclasses.replace(cfg, n_layers=READ_CHECK_LAYERS)
+    f32 = f32_read_gate(cut, read_prompt(cut))
+    print(f"phase 20: {cfg.name} float32 {cut.n_layers} layers, kernel vs "
+          f"gather read (heads {cfg.n_heads}/{cfg.n_kv_heads}, "
+          f"{cfg.n_heads // cfg.n_kv_heads} query heads a KV head), same "
+          f"prompt: max abs logit diff {f32['err']:.3e} over "
+          f"{f32['positions']} positions (tol 5e-2; logit std "
+          f"{f32['logit_std']:.3f}); streams equal {f32['streams_equal']}",
+          flush=True)
+
+
+def plain_step0_loss(cfg, shape) -> float:
+    """Step 0's loss of ``shape`` from seed 0's weights, through the flash
+    kernel's plain version."""
+    from repro_torch.data.pipeline import synthetic_batch
+    from repro_torch.models import api
+
+    params = api_init(cfg)
+    with torch.no_grad(), plain_flash():
+        loss = api.train_loss(params, synthetic_batch(cfg, shape, seed=0,
+                                                      step=0), cfg,
+                              device="cuda").item()
+    del params
+    free_card()
+    return loss
+
+
+def arch_train(cfg, shape, total: dict, *, plain_check: bool = False
+               ) -> None:
+    """Phase 18's plain run (``family_train``: 2 ``train_step``s of
+    ``shape`` from seed 0, every kernel counter set to 0 just before and
+    read just after): finite losses, the moments in the arch's dtype,
+    each kernel of a layer launched twice a layer (the forward and its
+    recompute) a microbatch a step.  With ``plain_check``, step 0's loss
+    within 2e-2 of the same loss through the flash kernel's plain
+    version (phase 9's gate)."""
+    plain0 = plain_step0_loss(cfg, shape) if plain_check else None
+    run = family_train(cfg, shape, None, False, {})
+    losses, ms, launches = run["losses"], run["ms"], run["launches"]
+    if cfg.family == "encdec":
+        n_attn, n_moe = cfg.n_encoder_layers, 0
+    else:
+        n_attn = sum(s.mixer == "attn" for s in cfg.pattern()) * cfg.n_groups
+        n_moe = sum(s.ffn == "moe" for s in cfg.pattern()) * cfg.n_groups
+    accum = max(1, cfg.accum_steps)
+    per = SHARDED_STEPS * 2 * accum
+    want = {k: 0 for k in launches}
+    want.update(flash_attention=per * n_attn, moe_dispatch=per * n_moe,
+                moe_combine=per * n_moe)
+    if launches != want:
+        raise AssertionError(f"{cfg.name} training: launches {launches} != "
+                             f"{want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{cfg.name} training: losses {losses}")
+    if run["moments"] != [f"torch.{cfg.adam_dtype}"]:
+        raise AssertionError(f"{cfg.name} training: moments "
+                             f"{run['moments']}, want {cfg.adam_dtype}")
+    # bf16 attention rounds at other points in the two paths; averaged
+    # over the batch's tokens that is ~1e-3 (phase 9)
+    if plain0 is not None and abs(losses[0] - plain0) > 2e-2:
+        raise AssertionError(f"{cfg.name} step 0 loss {losses[0]} is not "
+                             f"within 2e-2 of the plain-attention loss "
+                             f"{plain0}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    tokens = shape.global_batch * (min(cfg.decoder_len, shape.seq_len)
+                                   if cfg.family == "encdec"
+                                   else shape.seq_len)
+    print(f"phase 20: {cfg.name} training, {cfg.n_layers} layers "
+          f"({run['params']} parameters, AdamW moments {run['moments']}), "
+          f"{SHARDED_STEPS} train_steps at B {shape.global_batch} x S "
+          f"{shape.seq_len}"
+          + (f" ({cfg.decoder_len} decoder tokens)"
+             if cfg.family == "encdec" else "")
+          + f", {accum} microbatch(es): losses "
+          f"{[round(x, 4) for x in losses]}"
+          + (f" (step 0 through the plain attention {plain0:.4f}, gap "
+             f"{abs(losses[0] - plain0):.3e}, tol 2e-2)" if plain_check
+             else "")
+          + f"; step ms {[round(x, 1) for x in ms]} = "
+          f"{tokens / ms[-1] * 1e3:.1f} tokens/s at the last; peak memory "
+          f"{run['peak'] / 2**30:.3f} GiB; launches {json.dumps(launches)} "
+          f"= {SHARDED_STEPS} steps x {accum} x 2 (forward and recompute) "
+          f"per kernel's layer; {card_line()}", flush=True)
+
+
+def token_arch(name: str, serve_layers, train_layers, bs: tuple, accum,
+               plain_check: bool, total: dict) -> dict:
+    """One row of ``TOKEN_ARCHS`` at published width: served through the
+    ``ServeEngine`` (``arch_serve``) with its bf16 kernel-vs-gather read gap
+    reported, its MoE kernels held against their plain versions, the
+    paged kernel's read held to the gather read in float32
+    (``arch_read_gate``), trained (``arch_train``), and the flash kernel
+    held against its plain version at the training step's attention shape
+    (a microbatch's B, the query heads: GQA is widened before the kernel);
+    returns those flash numbers."""
+    from repro_torch.configs import registry
+    from repro_torch.models.types import ShapeConfig
+
+    full = registry.get(name)
+    cfg = dataclasses.replace(full, n_layers=serve_layers or full.n_layers)
+    params = api_init(cfg)
+    arch_line(cfg, sum(p.numel() for p in params.parameters()),
+              f"{cfg.n_layers} of {full.n_layers} layers")
+    arch_serve(cfg, params, total)
+    arch_read_gap(cfg, params)
+    if cfg.n_experts:
+        phase_moe_logits(cfg, params, phase="20")
+    del params
+    free_card()
+    arch_read_gate(cfg)
+    if cfg.n_experts:
+        phase_moe_logits_f32(cfg, phase="20")
+        free_card()
+    b, s = bs
+    tcfg = dataclasses.replace(full, n_layers=train_layers or full.n_layers,
+                               accum_steps=accum or full.accum_steps)
+    micro = b // max(1, tcfg.accum_steps)
+    print(f"phase 20: {name} trains at {tcfg.n_layers} of {full.n_layers} "
+          f"layers"
+          + (" (a cut of depth: one card does not hold the whole model's "
+             "training state)" if tcfg.n_layers < full.n_layers else "")
+          + f", {max(1, tcfg.accum_steps)} microbatch(es) of B {micro}, "
+          f"{tcfg.adam_dtype} moments"
+          + (", on embeds inputs" if tcfg.input_mode == "embeddings"
+             else ""), flush=True)
+    arch_train(tcfg, ShapeConfig(f"train_{s // 1024}k", "train", s, b),
+               total, plain_check=plain_check)
+    return flash_times(
+        "20", f"{name}'s training shape",
+        (micro, cfg.n_heads, s, cfg.head_dim),
+        torch.empty(64 * 2**20, dtype=torch.int32, device="cuda"),
+        causal=True, seed=20, iters=10, plain_iters=3)
+
+
+def danube_arch(total: dict) -> dict:
+    """h2o-danube-1.8b: full-depth prefill past its window (flash on the
+    simt route at D 80), the lockstep loop on its ring cache, training,
+    and prefill vs decode in f32 past the window; returns the flash
+    kernel's times at the prefill's attention shape."""
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import api
+    from repro_torch.models.types import ShapeConfig
+
+    cfg = registry.get("h2o-danube-1.8b")
+    route = fa.route(torch.bfloat16, cfg.head_dim)
+    if route != "simt":
+        raise AssertionError(f"flash route for bf16 D {cfg.head_dim} is "
+                             f"{route}; want simt")
+    params = api_init(cfg)
+    n_params = sum(p.numel() for p in params.parameters())
+    arch_line(cfg, n_params, f"full depth ({cfg.n_layers} layers)")
+    batch = api.batch_to({"tokens": np.random.default_rng(20).integers(
+        0, cfg.vocab_size, (DANUBE_B, DANUBE_S))}, "cuda")
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    timed = flash_ops.kernel = _TimedKernel(flash_ops.kernel)
+    try:
+        with Launches(total) as n, torch.no_grad():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits = api.prefill(params, batch, cfg, device="cuda")
+            end.record()
+    finally:
+        flash_ops.kernel = timed.module
+    prefill_ms = start.elapsed_time(end)
+    flash_ms = [s.elapsed_time(e) for s, e in timed.events]
+    peak = torch.cuda.max_memory_allocated()
+    n.expect("danube prefill", flash_attention=cfg.n_layers)
+    if not (logits.shape == (DANUBE_B, cfg.vocab_size)
+            and torch.isfinite(logits).all()):
+        raise AssertionError(f"danube prefill logits {tuple(logits.shape)}, "
+                             f"finite {bool(torch.isfinite(logits).all())}")
+    print(f"phase 20: {cfg.name} prefill B {DANUBE_B} x S {DANUBE_S} "
+          f"(window {cfg.window} masks): {prefill_ms:.2f} ms (CUDA events) "
+          f"= {DANUBE_B * DANUBE_S / prefill_ms * 1e3:.1f} tokens/s; "
+          f"flash_attention launches {n.n['flash_attention']} = "
+          f"{cfg.n_layers} layers, route {route}; flash "
+          f"{sum(flash_ms):.2f} ms of the prefill (per launch median "
+          f"{statistics.median(flash_ms):.3f}, min {min(flash_ms):.3f}, max "
+          f"{max(flash_ms):.3f}); logits finite, std "
+          f"{logits.std().item():.4f}; peak memory {peak / 2**30:.3f} GiB; "
+          f"{card_line()}", flush=True)
+    del logits, batch
+    free_card()
+
+    # the bf16 gap of the kernel path against the plain path: one row
+    one = {"tokens": np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (1, DANUBE_S))}
+    with torch.no_grad():
+        got = api.prefill(params, one, cfg, device="cuda")
+        with plain_flash():
+            want = api.prefill(params, one, cfg, device="cuda")
+    gap = (got - want).abs().max().item()
+    print(f"phase 20: {cfg.name} bfloat16 prefill B 1 x S {DANUBE_S}, flash "
+          f"kernel vs its plain version: max abs logit diff {gap:.3e} "
+          f"(logit std {want.std().item():.4f}), reported without a bound",
+          flush=True)
+    del got, want
+    free_card()
+
+    cache = api.init_cache(cfg, 8, DANUBE_S)
+    tok = torch.as_tensor(np.random.default_rng(22).integers(
+        0, cfg.vocab_size, (8, 1)), dtype=torch.int32, device="cuda")
+    step_ms = []
+    with Launches(total) as nd:
+        for _ in range(FAMILY_DECODE_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lo, cache = api.decode(params, tok, cache, cfg)
+            tok = lo.argmax(-1).to(torch.int32)[:, None]
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    nd.expect("danube lockstep decode")
+    ring = cache["layers"][0]["k"].shape[2]
+    if (cache["pos"] != FAMILY_DECODE_STEPS or ring != cfg.window
+            or not torch.isfinite(lo).all()):
+        raise AssertionError(f"danube lockstep decode: position "
+                             f"{cache['pos']}, ring {ring}, finite "
+                             f"{bool(torch.isfinite(lo).all())}")
+    print(f"phase 20: {cfg.name} {FAMILY_DECODE_STEPS} greedy api.decode "
+          f"steps of 8 sequences on the ring cache ({ring} slots = the "
+          f"window): ms per step mean {statistics.mean(step_ms[1:]):.2f} "
+          f"(steps 1-{FAMILY_DECODE_STEPS - 1}; step 0 {step_ms[0]:.2f}); "
+          f"no kernel on this path; {card_line()}", flush=True)
+    del params, cache, lo
+    free_card()
+
+    arch_train(cfg, ShapeConfig("train_4k", "train", TRAIN_S, TRAIN_B),
+               total)
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    params2 = api_init(cfg2)
+    t0 = time.monotonic()
+    err, std = prefill_vs_decode(cfg2, params2, DANUBE_CHECK_S)
+    del params2
+    free_card()
+    if not (math.isfinite(err) and err <= 1e-3 * std):
+        raise AssertionError(f"danube float32 prefill vs decode: last logits "
+                             f"differ by {err} (> 1e-3 x logit std {std})")
+    print(f"phase 20: {cfg.name} float32 2 layers, prefill of "
+          f"{DANUBE_CHECK_S} tokens (flash, simt) vs {DANUBE_CHECK_S} decode "
+          f"steps on the {cfg.window}-slot ring: last-position max abs "
+          f"logit diff {err:.3e} (tol 1e-3 x logit std {std:.4f} = "
+          f"{1e-3 * std:.3e}) in {time.monotonic() - t0:.1f} s", flush=True)
+    return flash_times(
+        "20", "danube's prefill shape",
+        (DANUBE_B, cfg.n_heads, DANUBE_S, cfg.head_dim),
+        torch.empty(64 * 2**20, dtype=torch.int32, device="cuda"),
+        causal=True, window=cfg.window, seed=20, iters=10, plain_iters=5)
+
+
+def whisper_train(total: dict) -> None:
+    """whisper-small's ``encdec_loss`` through 2 ``train_step``s at the
+    largest of B 8, 4, 2 x 4,096 frames x 448 tokens whose first try
+    fits (as phase 18 chooses mamba2's batch)."""
+    from repro_torch.configs import registry
+    from repro_torch.models.types import ShapeConfig
+
+    cfg = registry.get("whisper-small")
+    for b in WHISPER_TRAIN_BATCHES:
+        free_card()
+        shape = ShapeConfig("train_4k", "train", WHISPER_FRAMES, b)
+        try:
+            arch_train(cfg, shape, total, plain_check=True)
+            return
+        except torch.cuda.OutOfMemoryError:
+            print(f"phase 20: {cfg.name} training at B {b} x "
+                  f"{WHISPER_FRAMES} frames does not fit; trying a "
+                  f"smaller batch", flush=True)
+    raise AssertionError(f"{cfg.name} training fits at none of B "
+                         f"{WHISPER_TRAIN_BATCHES}")
+
+
+def phase_archs() -> dict:
+    """Phase 20: the five archs not yet run at their own geometry, served
+    and trained at published width, and whisper's training; returns the
+    launches by kernel, danube's flash times and the flash kernel's at
+    each token arch's training shape."""
+    t0 = time.monotonic()
+    total: dict = {}
+    shapes = {row[0]: token_arch(*row, total) for row in TOKEN_ARCHS}
+    danube = danube_arch(total)
+    whisper_train(total)
+    print(f"phase 20: five archs and whisper's training in "
+          f"{time.monotonic() - t0:.1f} s; launches {json.dumps(total)}; "
+          f"{card_line()}", flush=True)
+    return {"launches": total, "danube_simt": danube,
+            "train_shapes": shapes}
+
+
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
     from repro_torch.models import api
@@ -3370,7 +3850,7 @@ def main() -> int:
 
 
 def phases(sweep, workers: int, start: float) -> int:
-    """Phases 1-19 (the sweep's pool is already forked)."""
+    """Phases 1-20 (the sweep's pool is already forked)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
 
@@ -3481,13 +3961,18 @@ def phases(sweep, workers: int, start: float) -> int:
     free_card()
     dry["cells"] = phase_dryrun_cells(cells)
     p19 = dry["launches"]
+    archs = phase_archs()
+    p20 = archs["launches"]
+    free_card()
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches + sharded["paged"] + fam["paged_attention"],
+        "launches": launches + sharded["paged"] + fam["paged_attention"]
+        + p20["paged_attention"],
         "launches_by_phase": {"4": launches, "17": sharded["paged"],
-                              "18": fam["paged_attention"]},
+                              "18": fam["paged_attention"],
+                              "20": p20["paged_attention"]},
         **kstats}]
     replaces = {"runahead_gather": f"{GATHER_REPLACES}:91",
                 "pipelined_gather": f"{GATHER_REPLACES}:117",
@@ -3532,20 +4017,25 @@ def phases(sweep, workers: int, start: float) -> int:
         "name": "flash_attention", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES,
         "launches": flash_launches + whisper_launches + sharded["flash"]
-        + fam["flash_attention"] + p19["flash_attention"],
+        + fam["flash_attention"] + p19["flash_attention"]
+        + p20["flash_attention"],
         "launches_by_phase": {"9": flash_launches, "14": whisper_launches,
                               "17": sharded["flash"],
                               "18": fam["flash_attention"],
-                              "19": p19["flash_attention"]},
+                              "19": p19["flash_attention"],
+                              "20": p20["flash_attention"]},
         **flash, "whisper_encoder": whisper_flash,
+        "danube_simt": archs["danube_simt"],
+        "phase20_training_shapes": archs["train_shapes"],
         "custom_op_us": dry["overhead"]["flash_attention"]})
     for name, line in (("moe_dispatch", 45), ("moe_combine", 106)):
         kernels.append({
             "name": name, "route": "cuda", "source": MOE_SOURCE,
             "replaces": f"{MOE_REPLACES}:{line}",
-            "launches": moe_launches[name] + fam[name] + p19[name],
+            "launches": moe_launches[name] + fam[name] + p19[name]
+            + p20[name],
             "launches_by_phase": {"11": moe_launches[name], "18": fam[name],
-                                  "19": p19[name]},
+                                  "19": p19[name], "20": p20[name]},
             **moe_times[name], "custom_op_us": dry["overhead"][name]})
     kernels.append({
         "name": "ssd_scan", "route": "cuda", "source": SSD_SOURCE,
@@ -3554,7 +4044,7 @@ def phases(sweep, workers: int, start: float) -> int:
         "launches_by_phase": {"13": ssd_launches, "18": fam["ssd_scan"],
                               "19": p19["ssd_scan"]},
         **ssd, "custom_op_us": dry["overhead"]["ssd_scan"]})
-    print(f"phases 1-19 passed in {time.monotonic() - start:.1f} s",
+    print(f"phases 1-20 passed in {time.monotonic() - start:.1f} s",
           flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

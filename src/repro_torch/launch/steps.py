@@ -99,7 +99,10 @@ def train_step(state: dict, batch: dict, cfg: ModelConfig,
             for acc, g in zip(grads, _grads(l, leaves)):
                 acc.add_(g.float())
             losses.append(l.detach())
-        grads = [g / accum for g in grads]
+        # in place: a second set of float32 sums would hold 4 B a
+        # parameter more at the step's peak
+        for g in grads:
+            g.div_(accum)
         loss = sum(losses[1:], losses[0]) / accum
     grads = dict(zip(names, grads))
     state = adamw.apply_updates(state, grads, cfg=opt, transform=transform)

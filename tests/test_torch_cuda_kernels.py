@@ -16,9 +16,13 @@ cut, the wgmma route's tiles one past and one short (Sq, Sk around 128
 query rows and 64 keys, D 64 and 128; whisper's encoder shape, 12
 non-causal heads of 64 over 2,048 and 4,096 frames), paged decode
 attention split across blocks at lengths that cross split boundaries,
-zero-length rows, rep 1 to 8,
-D 64, 80 and 128, pages of 16 and 32 and 8 rows of 4,096 tokens, MoE
-dispatch and combine at T = 1, K = 1 and 8, and with every choice dropped
+zero-length rows, rep 1 to 8 over 2 to 10 KV heads (the head
+geometries of phi3-medium, internlm2, llama4-scout and internvl2),
+D 64, 80 and 128, pages of 16 and 32 and 8 rows of 4,096 tokens, flash
+at h2o-danube's D 80 with its 4,096 window over 8,192 positions (the
+scalar route) and at 40 and 64 query heads on the wgmma route, MoE
+dispatch and combine at T = 1, K = 1 (llama4's top-1 at D 5,120) and 8,
+and with every choice dropped
 (combine bit for bit at T 1 to 4,096, its rows split over blocks and not),
 the bag bit for bit against its kernel-order plain version where
 deduplicating a batch's rows could go wrong (all-pad rows, one index K
@@ -583,6 +587,46 @@ def test_flash_attention_at_whispers_encoder_shape(card, dtype, s):
         assert _tiled_gate(y, q, k, v, route, causal=False) <= 1.0
 
 
+def test_flash_attention_at_danubes_window(card):
+    """h2o-danube's prefill attention: bf16 heads of 80 (the scalar route),
+    causal, window 4,096 over 8,192 positions, so the window masks every
+    row past 4,096."""
+    q, k, v = _qkv(1, 4, 8192, 8192, 80, torch.bfloat16, card, seed=13)
+    assert fa_kernel.route(q.dtype, 80) == "simt"
+    mask = dict(causal=True, window=4096)
+    before = fa_kernel.flash_attention.launches
+    y, lse = fa_kernel.flash_attention(q, k, v, **mask)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    want_y, want_lse = fa_ref.attention_ref(q, k, v, **mask)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(lse).all()
+    assert (y.float() - want_y.float()).abs().max().item() \
+        <= FLASH_TOL[torch.bfloat16]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert _tiled_gate(y, q, k, v, "simt", **mask) <= 1.0
+
+
+@pytest.mark.parametrize("h,hkv", [(40, 10), (40, 8), (64, 8)])
+def test_flash_attention_at_the_wide_archs_heads(card, h, hkv):
+    """phi3-medium's 40 / 10, llama4-scout's 40 / 8 and internvl2's 64 / 8
+    heads of 128 on the wgmma route, through ``ops.attention`` (GQA
+    widened by repeat before the kernel), against the plain version."""
+    q, _, _ = _qkv(1, h, 1024, 1024, 128, torch.bfloat16, card, seed=h)
+    _, k, v = _qkv(1, hkv, 1024, 1024, 128, torch.bfloat16, card, seed=hkv)
+    assert fa_kernel.route(q.dtype, 128) == "mma"
+    before = fa_kernel.flash_attention.launches
+    y, lse = fa_ops.attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.launches == before + 1
+    kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    want_y, want_lse = fa_ref.attention_ref(q, kr, vr, causal=True)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(lse).all()
+    assert (y.float() - want_y.float()).abs().max().item() \
+        <= FLASH_TOL[torch.bfloat16]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert _tiled_gate(y, q, kr, vr, "mma", causal=True) <= 1.0
+
+
 @pytest.mark.parametrize("triangular,window", [(False, None), (True, None),
                                                (False, 24)])
 def test_blocked_attention_grads_on_the_card(card, triangular, window):
@@ -640,6 +684,10 @@ def _paged_lengths(b, page, pps, hkv):
     (9, 8, 4, 80, 32, 8),          # rep 2, D 80, page 32
     (9, 48, 8, 128, 16, 24),       # rep 6 (dbrx-132b)
     (9, 16, 2, 128, 32, 12),       # rep 8, page 32
+    (9, 40, 10, 128, 16, 24),      # rep 4 over 10 KV heads (phi3-medium)
+    (9, 40, 8, 128, 16, 24),       # rep 5: a pass short of 8 (llama4)
+    (9, 64, 8, 128, 16, 24),       # rep 8: one full pass (internvl2)
+    (9, 16, 8, 128, 16, 24),       # rep 2 over 8 KV heads (internlm2)
 ])
 def test_paged_attention_matches_its_plain_versions(card, dtype, b, h, hkv,
                                                     d, page, pps):
@@ -712,6 +760,8 @@ def _slots(rng, t, k, n_slots, drop):
     (33, 1, 4, torch.float32, 40, 0.5),        # K = 1; one 16-byte chunk
     (20, 2, 200, torch.float32, 30, 1.0),      # every choice dropped
     (17, 8, 96, torch.float32, 100, 0.4),      # K = 8, rows of 24 chunks
+    (8, 1, 5120, torch.bfloat16, 64, 0.0),     # llama4 decode: top-1
+    (64, 1, 5120, torch.bfloat16, 128, 0.2),   # llama4 prefill chunk
 ])
 def test_dispatch_is_bit_identical(card, t, k, d, dtype, n_slots, drop):
     from repro_torch.kernels.moe_dispatch import moe_dispatch as moe_kernel
@@ -767,6 +817,9 @@ COMBINE_BITS_CASES = [
     (t, k, 6144, dtype, 0.25)
     for t in (1, 8, 64, 4096) for k in (1, 4, 8)
     for dtype in (torch.bfloat16, torch.float32)
+] + [
+    (t, 1, 5120, torch.bfloat16, 0.25)         # llama4's top-1 at D 5,120
+    for t in (8, 64, 2048)
 ] + [
     (8, 4, 96, torch.float32, 0.3),            # 24 chunks: one part
     (8, 4, 6144, torch.bfloat16, 1.0),         # every choice dropped, parts

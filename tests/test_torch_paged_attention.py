@@ -135,7 +135,11 @@ def _split_lengths(pps, page, n_split):
     (12, 2, 128, 16, 40),      # rep 6 (qwen2-1.5b), two pages a split
     (16, 2, 128, 32, 12),      # rep 8, page 32
     (12, 2, 128, 16, 32),      # the serving path's table: 32 pages of 16
-], ids=["rep1-d64", "rep2-d80-p32", "rep6-d128", "rep8-p32", "rep6-p32x16"])
+    (40, 10, 128, 16, 8),      # rep 4 over 10 KV heads (phi3-medium)
+    (40, 8, 128, 16, 8),       # rep 5, a pass short of 8 (llama4-scout)
+    (64, 8, 128, 16, 8),       # rep 8 over 8 KV heads (internvl2)
+], ids=["rep1-d64", "rep2-d80-p32", "rep6-d128", "rep8-p32", "rep6-p32x16",
+        "rep4-hkv10", "rep5-hkv8", "rep8-hkv8"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_split_order_matches_jax(dtype, h, hkv, d, page, pps):
     """The split version at the wrapper's split count computes the

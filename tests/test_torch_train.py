@@ -27,6 +27,7 @@ of a few elements: in bfloat16, 99.9% of the well-conditioned elements
 agree to one bf16 ulp (2^-7 relative) and all to 2 lr a step plus
 one ulp.
 """
+import copy
 import dataclasses
 import functools
 
@@ -229,6 +230,53 @@ def test_train_steps_match_the_reference(dtype, accum, ef, n_steps):
             close = np.abs(g - w) <= rounding
             assert not well.any() or close[well].mean() >= tol["share"]
             assert (np.abs(g - w) <= 2 * lr * step + rounding).all()
+
+
+def _snapshot(state) -> dict:
+    """The state's parameters and moments, copied, by the port's names."""
+    return {"params": {n: p.detach().clone()
+                       for n, p in state["params"].named_parameters()},
+            "m": {n: t.clone() for n, t in state["m"].items()},
+            "v": {n: t.clone() for n, t in state["v"].items()}}
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_update_in_slices_is_bit_identical(monkeypatch, moments):
+    """A leaf larger than ``adamw.UPDATE_CHUNK`` is updated a slice of its
+    elements at a time: over two steps the same bits as the whole leaf at
+    once (each element's arithmetic is unchanged), and after one step the
+    reference's update to float32 rounding (bf16 moments: the same f32
+    values rounded once, so at most one bf16 ulp, 2^-7 of the value,
+    apart)."""
+    jcfg, tcfg = _cfgs("float32", adam_dtype=moments)
+    jparams, tparams = _params(jcfg, tcfg, seed=2)
+    opt = dataclasses.replace(steps.make_optimizer(tcfg), **OPT)
+    rng = np.random.default_rng(3)
+    grads = {n: torch.from_numpy(rng.normal(scale=1e-2, size=p.shape)
+                                 .astype(np.float32))
+             for n, p in tparams.named_parameters()}
+    assert max(g.numel() for g in grads.values()) > 1000
+    runs = []
+    for chunk in (adamw.UPDATE_CHUNK, 1000):
+        monkeypatch.setattr(adamw, "UPDATE_CHUNK", chunk)
+        state = adamw.apply_updates(
+            adamw.init_state(copy.deepcopy(tparams), opt), grads, opt)
+        first = _snapshot(state)
+        runs.append((adamw.apply_updates(state, grads, opt), first))
+    for a, b in zip(*(_leaves(state) for state, _ in runs)):
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+    jopt = dataclasses.replace(jax_steps.make_optimizer(jcfg), **OPT)
+    jstate = jax_adamw.apply_updates(jax_adamw.init_state(jparams, jopt),
+                                     convert.params_to_numpy(grads, tcfg),
+                                     jopt)
+    first = runs[1][1]
+    moment_tol = dict(rtol=2.0**-7 if moments == "bfloat16" else 1e-6,
+                      atol=0)
+    for k, tol in (("params", dict(rtol=1e-6, atol=1e-9)),
+                   ("m", moment_tol), ("v", moment_tol)):
+        for w, g in zip(jax.tree.leaves(_f32(jstate[k])), jax.tree.leaves(
+                convert.params_to_numpy(first[k], tcfg))):
+            np.testing.assert_allclose(g, w, **tol)
 
 
 def test_error_feedback_matches_the_reference_on_equal_grads():
