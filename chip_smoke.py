@@ -134,8 +134,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     ``reconfigure_cached`` cold vs warm ms are printed beside the card;
 17. run the sharding layer (``repro_torch.sharding``) on a one-rank NCCL
     group (a ``FileStore``, no TCP port) over ``make_host_mesh(1, 1)``:
-    ``build_train_step`` under ``MeshRules(sequence_parallel=False)``
-    (the reference's host-mesh setting) for 2 steps of full-width
+    ``build_train_step`` under ``MeshRules`` at its defaults (the
+    residual stream's sequence sharded over ``model``) for 2 steps of
+    full-width
     qwen2-1.5b at phase 9's B 4 x S 4,096 on a state placed by
     ``state_specs`` (DTensor parameters and moments), the flash counter
     set to 0 just before and read just after (exactly 2 x 56), then the
@@ -175,9 +176,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     subprocess with its own time limit and fake 512-rank default group,
     started beside (b) and (c), ``run_cell`` for qwen2-1.5b x decode_32k
     x pod16x16 and dbrx-132b (phase 11's 8 layers) x train_4k x
-    pod2x16x16 with ``sequence_parallel`` off (the card's torch refuses a
-    sequence-sharded flatten), printing each cell's per-rank peak GiB,
-    TFLOPs, collective bytes by kind and trace seconds; (b) on the
+    pod2x16x16 twice, on the rules' defaults (sequence parallelism on)
+    and with ``sequence_parallel`` off, printing each cell's per-rank
+    peak GiB, TFLOPs, collective bytes by kind and trace seconds; (b) on the
     one-rank mesh, ``build_train_step`` of qwen2-1.5b (phase 17's B 4 x
     S 4,096), dbrx-132b (1 layer, one microbatch, B 1 x S 2,048) and
     mamba2-2.7b (8 layers, B 4 x S 4,096) traced on meta through
@@ -218,7 +219,21 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     read, greedy streams equal) and the flash kernel against its plain
     version at the training step's attention shape.  Each arch prints its
     parameters, peak memory, step times, tokens/s and the bf16 logit gap
-    of its kernel path against the plain one.
+    of its kernel path against the plain one;
+21. sequence parallelism on this machine's torch, the rules' default:
+    in a subprocess (``chip_smoke.py --sp-ranks OUT``, 4 gloo ranks on
+    the CPU through a ``FileStore``, ``CUDA_VISIBLE_DEVICES=""``) started
+    beside phase 19's and collected after phase 20, the smoke configs of
+    qwen2, dbrx, mamba2, jamba (its first 4 layers, one microbatch) and
+    whisper at (2, 2), and qwen2 at (1, 4), each under ``MeshRules`` at
+    its defaults: one float32 ``build_train_step`` step against the
+    unsharded ``train_step`` (loss and grad norm within 1e-4 relative,
+    each AdamW moment within 1e-4 in relative norm, 2**-8 for the MoE
+    archs, each parameter within 2 lr) and one float32 ``build_step``
+    prefill against ``prefill_step`` (within 1e-5 of the largest plain
+    logit, 2**-8 for the MoE archs), the residual stream ``Shard(1)``
+    over ``model`` at every block boundary of the sharded runs; printed
+    with ``torch.__version__``, each error and the seconds.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -304,8 +319,11 @@ JAMBA_LAYERS, JAMBA_B, JAMBA_S = 4, 2, 4_096
 FAMILY_DECODE_STEPS = 8
 DIGEST_CHUNK = 2**24
 # phase 19: the dry run's cells on the card machine's torch, in a
-# subprocess of their own (a fake 512-rank default group)
+# subprocess of their own (a fake 512-rank default group); dbrx's on the
+# rules' defaults (sequence parallelism on) and with it off
 DRYRUN_CELLS = (("qwen2-1.5b", "decode_32k", False, None, None),
+                ("dbrx-132b", "train_4k", True, None,
+                 {"n_layers": DBRX_LAYERS}),
                 ("dbrx-132b", "train_4k", True, {"sequence_parallel": False},
                  {"n_layers": DBRX_LAYERS}))
 DRYRUN_TIMEOUT_S = 300
@@ -2668,10 +2686,7 @@ def one_rank_mesh():
         str(store_dir / "store"), 1), rank=0, world_size=1,
         device_id=torch.device("cuda", 0))
     try:
-        # sequence_parallel=False, as the reference's host-mesh checks run:
-        # with the sequence sharded, the card's torch (2.11) refuses to
-        # flatten [B, S, D] for a matmul ("dimension 1 being sharded")
-        rules = MeshRules(make_host_mesh(1, 1), sequence_parallel=False)
+        rules = MeshRules(make_host_mesh(1, 1))
         print(f"phase 17: one-rank NCCL group and mesh "
               f"{rules.mesh.mesh_dim_names} {tuple(rules.mesh.shape)} on "
               f"{rules.mesh.device_type} in {time.monotonic() - t0:.2f} s",
@@ -3189,8 +3204,28 @@ def dryrun_cells(out: str) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def subprocesses():
+    """``started(t)`` returns ``t`` (a ``start_*`` tuple, its process
+    first); on the way out, by an error too, every process so passed
+    that is still running is killed."""
+    procs = []
+
+    def started(t: tuple) -> tuple:
+        procs.append(t[0])
+        return t
+
+    try:
+        yield started
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def start_dryrun_cells() -> tuple:
-    """Phase 19 (a), started: the dry run's two cells on this machine's
+    """Phase 19 (a), started: the dry run's three cells on this machine's
     torch, in a subprocess (a process holds one default group, and this
     one holds phases 17-19's NCCL group) that runs beside (b) and (c)."""
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
@@ -3222,27 +3257,139 @@ def phase_dryrun_cells(started: tuple) -> dict:
         records = json.loads(out.read_text())
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    cells = {}
     for rec, (arch, shape, _, overrides, cuts) in zip(records, DRYRUN_CELLS):
         if rec.get("status") != "ok":
             raise AssertionError(f"phase 19: {arch} x {shape}: {rec}")
+        sp = rec["rules"]["sequence_parallel"]
+        cells[f"{arch}__{shape}__{rec['mesh']}__sp_{'on' if sp else 'off'}"] \
+            = {k: rec[k] for k in ("peak_device_bytes", "flops",
+                                   "collectives", "trace_seconds")}
         coll = {k: round(v / 1e9, 3) for k, v in rec["collectives"].items()}
-        why = ("" if not overrides else
-               " (sequence_parallel off: the card's torch refuses to "
-               "flatten a sequence-sharded [B, S, D] for a matmul)")
         print(f"phase 19: dry run {arch}{'' if not cuts else f' {cuts}'} "
-              f"x {shape} x {rec['mesh']}{why}: {rec['chips']} ranks, per "
-              f"rank peak {rec['peak_device_bytes'] / 2**30:.3f} GiB, "
+              f"x {shape} x {rec['mesh']}, sequence_parallel {sp}: "
+              f"{rec['chips']} ranks, per rank peak "
+              f"{rec['peak_device_bytes'] / 2**30:.3f} GiB, "
               f"{rec['flops'] / 1e12:.3f} TFLOPs, collective GB by kind "
               f"{json.dumps(coll)} (calls "
               f"{json.dumps(rec['collective_counts'])}), kernel fakes "
               f"{json.dumps(rec['kernel_calls'])}; trace "
               f"{rec['trace_seconds']} s, cell {rec['seconds']:.1f} s on "
               f"torch {torch.__version__}", flush=True)
+    on, off = (cells[f"dbrx-132b__train_4k__pod2x16x16__sp_{k}"]
+               for k in ("on", "off"))
+    print("phase 19: dbrx train_4k pod2x16x16, sequence parallelism on vs "
+          "off: " + ", ".join(
+              f"{kind} {on['collectives'].get(kind, 0) / 1e9:.3f} vs "
+              f"{off['collectives'].get(kind, 0) / 1e9:.3f} GB"
+              for kind in sorted({*on["collectives"], *off["collectives"]}))
+          + f"; peak {on['peak_device_bytes'] / 2**30:.3f} vs "
+          f"{off['peak_device_bytes'] / 2**30:.3f} GiB; trace "
+          f"{on['trace_seconds']} vs {off['trace_seconds']} s", flush=True)
     print(f"phase 19: dry-run subprocess done "
           f"{time.monotonic() - t0:.1f} s after its start", flush=True)
-    return {f"{r['arch']}__{r['shape']}__{r['mesh']}": {
-        k: r[k] for k in ("peak_device_bytes", "flops", "collectives",
-                          "trace_seconds")} for r in records}
+    return cells
+
+
+# phase 21: the sequence-parallel checks' names (tests/
+# torch_host_mesh_checks.py's ``sequence_parallel_card`` group), their time
+# limit from the start of their subprocess, and the gates
+SP_CASES = ("qwen2", "dbrx", "mamba2", "jamba", "whisper", "qwen2_1x4")
+SP_TIMEOUT_S = 600
+SP_STEP_TOL, SP_PREFILL_TOL, SP_MOE_TOL = 1e-4, 1e-5, 2.0 ** -8
+
+
+def sp_ranks(out: str) -> int:
+    """``chip_smoke.py --sp-ranks OUT``: phase 21's 4 gloo ranks on the
+    CPU (``tests/torch_host_mesh_checks.py``'s ``sequence_parallel_card``
+    group, a ``FileStore`` beside OUT, 120 s a collective), rank 0's
+    results written to OUT as JSON.  Touches no card."""
+    import torch.multiprocessing as mp
+
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT / "tests")]
+    import torch_host_mesh_checks as checks
+
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as d:
+        mp.spawn(checks._rank, args=("sequence_parallel_card",
+                                     os.path.join(d, "store"), out),
+                 nprocs=checks.GROUPS["sequence_parallel_card"][0])
+    return 0
+
+
+def start_sp_ranks() -> tuple:
+    """Phase 21, started beside phase 19's subprocess."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sp_"))
+    out = tmp / "sp.json"
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--sp-ranks",
+         str(out)], stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    return proc, tmp, out, time.monotonic()
+
+
+def sp_failures(name: str, r: dict) -> list[str]:
+    """Phase 21's gates on one check's results."""
+    if "error" in r:
+        return [r["error"]]
+    moe = r["moe"]
+    rel = {k: abs(r[f"f32_{k}"] - r[f"f32_plain_{k}"])
+           / abs(r[f"f32_plain_{k}"]) for k in ("loss", "grad_norm")}
+    gates = {
+        "loss": rel["loss"] <= SP_STEP_TOL,
+        "grad norm": rel["grad_norm"] <= SP_STEP_TOL,
+        "moments": r["moment_max_rel_norm"]
+        <= (SP_MOE_TOL if moe else SP_STEP_TOL),
+        "parameters": r["param_max_abs"] <= 2 * r["lr"],
+        "prefill": r["prefill_err"]
+        <= (SP_MOE_TOL if moe else SP_PREFILL_TOL) * r["prefill_scale"],
+        "Shard(1) at every block boundary":
+            r["boundaries"] > 0 and not r["off_sequence"],
+        "cross K/V": r.get("cross_err", 0.0)
+        <= SP_PREFILL_TOL * r.get("cross_scale", 0.0),
+        "placed": r["placed"] and r["step_equal"]}
+    return [f"{name}: {gate} ({json.dumps(r)[:1500]})"
+            for gate, ok in gates.items() if not ok]
+
+
+def phase_sp_ranks(started: tuple) -> dict:
+    """Phase 21, collected after phase 20 (within ``SP_TIMEOUT_S`` of its
+    start): each arch's errors against the unsharded step and prefill."""
+    proc, tmp, out, t0 = started
+    try:
+        try:
+            _, err = proc.communicate(
+                timeout=max(1.0, SP_TIMEOUT_S - (time.monotonic() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"phase 21: the sequence-parallel ranks "
+                                 f"took over {SP_TIMEOUT_S} s")
+        results = json.loads(out.read_text()) if out.exists() else {}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    failures = [] if proc.returncode == 0 else [
+        f"rc {proc.returncode}: {err[-3000:]}"]
+    for name in SP_CASES:
+        r = results.get(f"sp_card_{name}", {"error": "did not run"})
+        failures += sp_failures(name, r)
+        if "error" in r:
+            continue
+        print(f"phase 21: {name} at {tuple(r['mesh'])}, sequence_parallel "
+              f"on (4 gloo ranks, torch {torch.__version__}): float32 loss "
+              f"{r['f32_loss']:.7f} vs unsharded {r['f32_plain_loss']:.7f}, "
+              f"grad norm {r['f32_grad_norm']:.7f} vs "
+              f"{r['f32_plain_grad_norm']:.7f}, moments max rel. norm "
+              f"{r['moment_max_rel_norm']:.3e}, params max abs "
+              f"{r['param_max_abs']:.3e} (lr {r['lr']:.1e}); prefill max "
+              f"abs err {r['prefill_err']:.3e} of scale "
+              f"{r['prefill_scale']:.4f}; stream Shard(1) over model at "
+              f"{r['boundaries']} block boundaries (off: "
+              f"{r['off_sequence']}); {r['seconds']:.1f} s", flush=True)
+    print(f"phase 21: sequence-parallel subprocess done "
+          f"{time.monotonic() - t0:.1f} s after its start", flush=True)
+    if failures:
+        raise AssertionError("phase 21: " + "\n".join(failures))
+    return {name: results[f"sp_card_{name}"] for name in SP_CASES}
 
 
 # phase 19 (b): (arch, its cuts, the training shape), traced on meta and
@@ -3830,6 +3977,8 @@ def main() -> int:
     start = time.monotonic()
     if sys.argv[1:2] == ["--dryrun-cells"]:
         return dryrun_cells(sys.argv[2])
+    if sys.argv[1:2] == ["--sp-ranks"]:
+        return sp_ranks(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -3850,7 +3999,7 @@ def main() -> int:
 
 
 def phases(sweep, workers: int, start: float) -> int:
-    """Phases 1-20 (the sweep's pool is already forked)."""
+    """Phases 1-21 (the sweep's pool is already forked)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
 
@@ -3950,20 +4099,23 @@ def phases(sweep, workers: int, start: float) -> int:
     del flush
     swept = phase_sweep(sweep, workers, reconf)
     torch.cuda.empty_cache()
-    with one_rank_mesh() as rules:
-        sharded = phase_sharded(cfg, rules)
+    with subprocesses() as started:
+        with one_rank_mesh() as rules:
+            sharded = phase_sharded(cfg, rules)
+            free_card()
+            families = phase_families(rules)
+            free_card()
+            cells = started(start_dryrun_cells())
+            sp_started = started(start_sp_ranks())
+            dry = phase_dryrun(cfg, rules)
+        fam = families["launches"]
         free_card()
-        families = phase_families(rules)
+        dry["cells"] = phase_dryrun_cells(cells)
+        p19 = dry["launches"]
+        archs = phase_archs()
+        p20 = archs["launches"]
         free_card()
-        cells = start_dryrun_cells()
-        dry = phase_dryrun(cfg, rules)
-    fam = families["launches"]
-    free_card()
-    dry["cells"] = phase_dryrun_cells(cells)
-    p19 = dry["launches"]
-    archs = phase_archs()
-    p20 = archs["launches"]
-    free_card()
+        phase_sp_ranks(sp_started)
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
@@ -4044,7 +4196,7 @@ def phases(sweep, workers: int, start: float) -> int:
         "launches_by_phase": {"13": ssd_launches, "18": fam["ssd_scan"],
                               "19": p19["ssd_scan"]},
         **ssd, "custom_op_us": dry["overhead"]["ssd_scan"]})
-    print(f"phases 1-20 passed in {time.monotonic() - start:.1f} s",
+    print(f"phases 1-21 passed in {time.monotonic() - start:.1f} s",
           flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

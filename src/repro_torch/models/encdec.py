@@ -110,10 +110,10 @@ def init_encdec(cfg: ModelConfig, generator: torch.Generator,
 def _enc_block(p: EncBlock, x: torch.Tensor, positions: torch.Tensor,
                cfg: ModelConfig) -> torch.Tensor:
     h = layers.apply_norm(p.attn_norm, x, cfg)
-    x = x + layers.apply_attention(p.attn, h, positions, cfg, causal=False)
-    x = sharding.constrain(x, "activations")
+    x = lm._add(x, layers.apply_attention(p.attn, h, positions, cfg,
+                                          causal=False))
     h = layers.apply_norm(p.mlp_norm, x, cfg)
-    return sharding.constrain(x + layers.apply_mlp(p.mlp, h), "activations")
+    return lm._add(x, layers.apply_mlp(p.mlp, h))
 
 
 def encode(params: EncDec, frames: torch.Tensor,
@@ -135,12 +135,13 @@ def encode(params: EncDec, frames: torch.Tensor,
 def _dec_block(p: DecBlock, x: torch.Tensor, enc_out: torch.Tensor,
                positions: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = layers.apply_norm(p.self_norm, x, cfg)
-    x = x + layers.apply_attention(p.self_attn, h, positions, cfg,
-                                   causal=True)
+    x = lm._add(x, layers.apply_attention(p.self_attn, h, positions, cfg,
+                                          causal=True))
     h = layers.apply_norm(p.cross_norm, x, cfg)
-    x = x + layers.apply_cross_attention(p.cross_attn, h, enc_out, cfg)
+    x = lm._add(x, layers.apply_cross_attention(p.cross_attn, h, enc_out,
+                                                cfg))
     h = layers.apply_norm(p.mlp_norm, x, cfg)
-    return sharding.constrain(x + layers.apply_mlp(p.mlp, h), "activations")
+    return lm._add(x, layers.apply_mlp(p.mlp, h))
 
 
 def _decode_stack(params: EncDec, x: torch.Tensor, enc_out: torch.Tensor,
@@ -161,7 +162,8 @@ def _decoder_out(params: EncDec, batch: dict,
     positions = torch.arange(tokens.shape[1], device=x.device)
     x = x + sharding.replicated(sinusoid(positions, cfg.d_model).to(x.dtype),
                                 x)
-    return _decode_stack(params, x, enc_out, cfg)
+    return _decode_stack(params, sharding.constrain(x, "activations"),
+                         enc_out, cfg)
 
 
 def encdec_loss(params: EncDec, batch: dict,
@@ -180,7 +182,7 @@ def encdec_prefill(params: EncDec, batch: dict,
                    cfg: ModelConfig) -> torch.Tensor:
     """Encode the frames and run the decoder prompt: logits [B, V] float32
     of the last decoder position."""
-    x = _decoder_out(params, batch, cfg)
+    x = sharding.whole_sequence(_decoder_out(params, batch, cfg))
     return (x[:, -1, :] @ params.lm_head).float()
 
 
@@ -213,6 +215,7 @@ def precompute_cross(params: EncDec, enc_out: torch.Tensor,
     [B,S,D]: two [G,B,Hkv,S,Dh] tensors (no bias, as in the reference)."""
     dims = layers.attn_dims(cfg)
     b, s = enc_out.shape[:2]
+    enc_out = sharding.whole_sequence(enc_out)
     ks, vs = [], []
     for block in params.decoder:
         for w, out in ((block.cross_attn.wk, ks), (block.cross_attn.wv, vs)):

@@ -124,7 +124,11 @@ class MLP(nn.Module):
 
 def apply_mlp(p: MLP, x: torch.Tensor) -> torch.Tensor:
     """The branch is picked by the leaves ``p`` holds, as in the reference;
-    its ``jax.nn.gelu`` is the tanh approximation."""
+    its ``jax.nn.gelu`` is the tanh approximation.  On a mesh the sequence
+    is gathered first (:func:`repro_torch.sharding.whole_sequence`) and
+    the output is ``wo``'s partial sums, which the caller scatters onto
+    the residual stream's layout."""
+    x = sharding.whole_sequence(x)
     if hasattr(p, "wi_gate"):
         h = F.silu(x @ p.wi_gate) * (x @ p.wi_up)
     else:
@@ -178,7 +182,11 @@ class Attention(nn.Module):
 
 def _project_qkv(p: Attention, xq: torch.Tensor, xkv: torch.Tensor,
                  dims: AttnDims):
-    """[B,S,D] inputs -> q [B,Hq,S,Dh], k/v [B,Hkv,S,Dh]."""
+    """[B,S,D] inputs -> q [B,Hq,S,Dh], k/v [B,Hkv,S,Dh] (on a mesh, each
+    input's sequence gathered first)."""
+    same = xkv is xq
+    xq = sharding.whole_sequence(xq)
+    xkv = xq if same else sharding.whole_sequence(xkv)
     q = xq @ p.wq
     k = xkv @ p.wk
     v = xkv @ p.wv

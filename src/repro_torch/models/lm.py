@@ -100,19 +100,34 @@ def param_count(params: nn.Module) -> int:
 # forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _ffn_branch(block: Block, x: torch.Tensor, cfg: ModelConfig
+                ) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """The block's FFN branch on the residual stream x: (its output, None
+    without an FFN; the MoE aux loss, 0 without an MoE FFN).  An MoE
+    routes every row of x."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if block.ffn_norm is None:
+        return None, aux
+    h = layers.apply_norm(block.ffn_norm, x, cfg)
+    if block.moe is not None:
+        return moe.apply_moe(block.moe, h, cfg)
+    return layers.apply_mlp(block.mlp, h), aux
+
+
 def _ffn(block: Block, x: torch.Tensor, cfg: ModelConfig
          ) -> tuple[torch.Tensor, torch.Tensor]:
     """The block's FFN half on the residual stream: (new x, the MoE aux
-    loss, 0 without an MoE FFN).  An MoE routes every row of x."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if block.ffn_norm is None:
-        return x, aux
-    h = layers.apply_norm(block.ffn_norm, x, cfg)
-    if block.moe is not None:
-        h, aux = moe.apply_moe(block.moe, h, cfg)
-    else:
-        h = layers.apply_mlp(block.mlp, h)
-    return x + h, aux
+    loss)."""
+    h, aux = _ffn_branch(block, x, cfg)
+    return (x if h is None else x + h), aux
+
+
+def _add(x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """x + h on the residual stream's layout: on a mesh, h (a
+    row-parallel product's partial sums) is first reduce-scattered onto
+    it (the sequence shards, with sequence parallelism)."""
+    return sharding.constrain(x + sharding.constrain(h, "activations"),
+                              "activations")
 
 
 def _apply_block(block: Block, x: torch.Tensor, positions: torch.Tensor,
@@ -125,10 +140,9 @@ def _apply_block(block: Block, x: torch.Tensor, positions: torch.Tensor,
                                    impl=attn_impl)
     else:
         h = ssm.apply_ssm(block.ssm, h, cfg)
-    x, aux = _ffn(block, sharding.constrain(x + h, "activations"), cfg)
-    if block.ffn_norm is not None:
-        x = sharding.constrain(x, "activations")
-    return x, aux
+    x = _add(x, h)
+    h, aux = _ffn_branch(block, x, cfg)
+    return (x if h is None else _add(x, h)), aux
 
 
 def _remat(fn, *args):
@@ -200,6 +214,7 @@ def chunked_cross_entropy(x: torch.Tensor, w_head: torch.Tensor,
     b, s, _ = x.shape
     c = min(chunk, s)
     assert s % c == 0, (s, c)
+    x = sharding.whole_sequence(x)     # gathered once, not per chunk
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, s, c):
         total = total + _remat(_ce_chunk, x[:, i:i + c], w_head,
@@ -219,6 +234,7 @@ def prefill_logits(params: LM, batch: dict, cfg: ModelConfig,
                    attn_impl: str = "auto") -> torch.Tensor:
     """Prefill: full-sequence forward, logits of the last position only."""
     x, _ = forward(params, batch, cfg, attn_impl)
+    x = sharding.whole_sequence(x)
     return (x[:, -1, :] @ _lm_head(params, cfg)).float()
 
 

@@ -194,7 +194,9 @@ def _regions(x: DTensor, e: int, g: int, cap: int, d: int, route, combine):
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [..., D] (any leading shape); returns (y, aux load-balance loss
-    float32)."""
+    float32).  On a mesh a sequence-sharded x [B, S, D] is gathered first:
+    the groups are runs of consecutive tokens of the whole batch."""
+    x = sharding.whole_sequence(x)
     orig_shape = x.shape
     d = orig_shape[-1]
     tokens = x.reshape(-1, d)

@@ -179,6 +179,10 @@ def _constrain_chunks(t: torch.Tensor, q: int, kind: str) -> torch.Tensor:
 
 
 def _project(p: SSM, x: torch.Tensor):
+    """The five input projections of x [B, S, D] (on a mesh, its sequence
+    gathered first: the conv and the scan then run along the whole
+    sequence)."""
+    x = sharding.whole_sequence(x)
     return x @ p.in_z, x @ p.in_x, x @ p.in_b, x @ p.in_c, x @ p.in_dt
 
 

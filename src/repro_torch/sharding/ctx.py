@@ -11,7 +11,8 @@ and the CPU tests are unchanged.
 ``replicated(t, like)`` puts a tensor the model makes itself (positions,
 the RoPE table, masks) on ``like``'s mesh, replicated, when ``like`` is a
 DTensor: an op that mixes a plain tensor with a DTensor raises.
-``gathered`` and ``full`` take a DTensor whole, on the mesh or off it;
+``gathered`` and ``full`` take a DTensor whole, on the mesh or off it
+(``whole_sequence`` only its sequence, before a column-parallel product);
 ``local`` is a replicated DTensor's own copy on this rank, for writes
 that every rank makes alike; ``put_`` writes one index of a (possibly
 sharded) DTensor in place, each rank into the shard it holds.
@@ -103,6 +104,19 @@ def gathered(t: torch.Tensor, dim: int | None = None) -> torch.Tensor:
     return t.redistribute(t.device_mesh, [
         Replicate() if dim is None or p == Shard(dim % t.ndim) else p
         for p in t.placements])
+
+
+def whole_sequence(x: torch.Tensor) -> torch.Tensor:
+    """x [B, S, ...] with S gathered where a mesh axis shards it, the
+    all-gather that sequence parallelism makes before a column-parallel
+    product; anything else as it is.  ``x @ w`` views [B, S, D] as
+    [B * S, D], and DTensor (torch 2.11) views a flatten only where no dim
+    after its first is sharded.  Its backward is the reduce-scatter of the
+    product's partial sums onto the sequence shards."""
+    if not isinstance(x, DTensor) or x.ndim < 3 \
+            or Shard(1) not in x.placements:
+        return x
+    return gathered(x, 1)
 
 
 def full(t: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,8 @@ Run by tests/test_torch_host_mesh.py and tests/test_torch_mesh_steps.py:
     python tests/torch_host_mesh_checks.py --group mesh --out result.json
 
 spawns the group's ranks (4 for ``mesh``, ``sequence_parallel``,
-``families`` and ``dryrun``, 1 for ``steps``) that meet through a ``FileStore`` next to
+``families``, ``dryrun`` and ``sequence_parallel_families``, 1 for
+``steps``) that meet through a ``FileStore`` next to
 ``--out`` (no TCP
 port, so several runs can go at once), runs the group's checks on all
 ranks, and has rank 0 write one JSON object,
@@ -45,7 +46,7 @@ from repro_torch.models import api, encdec, paged_lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.types import ShapeConfig  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
-from repro_torch.runtime.elastic import reshard_state  # noqa: E402
+from repro_torch.runtime.elastic import reshard, reshard_state  # noqa: E402
 from repro_torch.runtime.fault_tolerance import (SimulatedFailure,  # noqa
                                                  TrainDriver)
 from repro_torch.serve.engine import ServeEngine  # noqa: E402
@@ -129,10 +130,11 @@ def check_sequence_parallel_train_step(tmp):
     return f32_step_vs_plain(sequence_parallel=True)
 
 
-def f32_step_vs_plain(sequence_parallel=False, cfg=None) -> dict:
+def f32_step_vs_plain(sequence_parallel=False, cfg=None,
+                      mesh=(2, 2)) -> dict:
     """One sharded float32 step against the port's unsharded
     ``train_step`` from the same state: loss, grad norm and every leaf."""
-    cfg, _, built, state = tiny_setup(dtype="float32",
+    cfg, _, built, state = tiny_setup(*mesh, dtype="float32",
                                       sequence_parallel=sequence_parallel,
                                       cfg=cfg)
     batch = batch_fn(cfg)(0)
@@ -301,15 +303,7 @@ def check_family_steps(arch, changes) -> dict:
 
     params = api.init_params(cfg32, torch.Generator().manual_seed(SEED),
                              "cpu")
-    prefill = ShapeConfig("p", "prefill", seq_len=SHAPE.seq_len,
-                          global_batch=SHAPE.global_batch
-                          // max(1, cfg.accum_steps))
-    batch = synthetic_batch(cfg32, prefill, seed=BATCH_SEED, step=0)
-    batch.pop("labels", None)
-    want = steps.prefill_step(params, batch, cfg32, device="cpu")
-    got = full(steps.build_step(cfg32, prefill, rules).fn(params, batch))
-    out["prefill_err"] = float((got - want).abs().max())
-    out["prefill_scale"] = float(want.abs().max())
+    out.update(prefill_vs_plain(cfg32, rules, params))
 
     b, s = 2, 32
     decode = ShapeConfig("d", "decode", seq_len=s, global_batch=b)
@@ -339,6 +333,23 @@ def check_family_steps(arch, changes) -> dict:
                    cache)))
     out["ok"] = out["ok"] and out["cache_dtensor"]
     return out
+
+
+def prefill_vs_plain(cfg32, rules, params=None) -> dict:
+    """``build_step`` prefill (float32, at the shape of one training
+    microbatch) against the plain ``prefill_step``: the largest logit
+    difference and the largest plain logit."""
+    params = params or api.init_params(
+        cfg32, torch.Generator().manual_seed(SEED), "cpu")
+    prefill = ShapeConfig("p", "prefill", seq_len=SHAPE.seq_len,
+                          global_batch=SHAPE.global_batch
+                          // max(1, cfg32.accum_steps))
+    batch = synthetic_batch(cfg32, prefill, seed=BATCH_SEED, step=0)
+    batch.pop("labels", None)
+    want = steps.prefill_step(params, batch, cfg32, device="cpu")
+    got = full(steps.build_step(cfg32, prefill, rules).fn(params, batch))
+    return {"prefill_err": float((got - want).abs().max()),
+            "prefill_scale": float(want.abs().max())}
 
 
 def leaves_of(tree) -> list:
@@ -536,6 +547,299 @@ def check_attention_layouts(tmp):
     return out
 
 
+# -- sequence parallelism ---------------------------------------------------
+
+STRICT_VIEW_ERROR = ("Attempted to flatten multiple dimensions, with "
+                     "dimension {} being sharded. ")
+
+
+class StrictViews:
+    """torch 2.11's rule for DTensor views, enforced on any torch.  In
+    2.11, ``torch/distributed/tensor/_ops/_view_ops.py``'s
+    ``propagate_shape_and_sharding`` reads, for each ``Flatten`` of a
+    view's rule::
+
+        for i, dim in enumerate(cmd.input_dims):
+            ...
+            input_sharded = shard_mesh_dim is not None
+            if i > 0:
+                can_shard_dim = False
+                if strict_view and input_sharded:
+                    raise RuntimeError(
+                        f"Attempted to flatten multiple dimensions, with
+                        dimension {dim.input_dim} being sharded. ",
+                        "It cannot be performed without redistribution,
+                        which is disallowed by the current operator.")
+
+    and ``aten.view`` and ``aten._unsafe_view`` (which ``reshape`` and
+    ``matmul``'s folding decompose to) are registered with
+    ``strict_view=True``: a view may merge a sharded dim only as the first
+    of the dims it merges.  Later versions view such a merge as a
+    ``_StridedShard``.  :meth:`install` wraps the running torch's
+    ``propagate_shape_and_sharding`` so that it raises 2.11's error
+    wherever 2.11 would, and records each refusal and the count of strict
+    views it checked."""
+
+    def __init__(self):
+        self.refused: list[str] = []
+        self.checked = 0
+
+    def install(self) -> None:
+        from torch.distributed.tensor._ops import _view_ops
+        real = _view_ops.propagate_shape_and_sharding
+
+        def flattens(cmd):
+            if isinstance(cmd, _view_ops.Flatten):
+                yield cmd
+            for inp in cmd.inputs():
+                yield from flattens(inp)
+
+        def propagate(placements, shape, rule, mesh_sizes, strict_view=False):
+            if strict_view:
+                self.checked += 1
+                for fl in (f for cmd in rule for f in flattens(cmd)):
+                    for dim in fl.input_dims[1:]:
+                        if any(isinstance(p, Shard) and p.dim == dim.input_dim
+                               for p in placements):
+                            self.refused.append(
+                                f"{tuple(shape)} {tuple(placements)} "
+                                f"{rule}")
+                            raise RuntimeError(
+                                STRICT_VIEW_ERROR.format(dim.input_dim),
+                                "It cannot be performed without "
+                                "redistribution, which is disallowed by the "
+                                "current operator.")
+            return real(placements, shape, rule, mesh_sizes, strict_view)
+
+        _view_ops.propagate_shape_and_sharding = propagate
+        DTensor._op_dispatcher.sharding_propagator \
+            .propagate_op_sharding.cache_clear()
+
+
+_STRICT = StrictViews()
+
+
+def strict_views() -> None:
+    """The ``sequence_parallel_families`` group's set-up on each rank,
+    before its first DTensor op (no sharding decision is cached yet)."""
+    _STRICT.install()
+
+
+class Boundaries:
+    """Records the residual stream's placements at every block boundary
+    (the input and the output of ``lm._apply_block``, ``encdec._enc_block``
+    and ``encdec._dec_block``, the recomputes included) while installed."""
+
+    SITES = ((None, "_apply_block"), ("encdec", "_enc_block"),
+             ("encdec", "_dec_block"))
+
+    def __init__(self):
+        self.seen: list[tuple] = []
+
+    def __enter__(self):
+        from repro_torch.models import lm
+        self._saved = []
+        for mod, name in self.SITES:
+            owner = encdec if mod else lm
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def _wrap(self, fn):
+        def block(p, x, *args, **kwargs):
+            out = fn(p, x, *args, **kwargs)
+            y = out[0] if isinstance(out, tuple) else out
+            self.seen += [(tuple(t.shape), t.placements[m], t.device_mesh
+                           .size(m)) for t in (x, y) if isinstance(t, DTensor)
+                          for m in [t.device_mesh.mesh_dim_names
+                                    .index("model")]]
+            return out
+        return block
+
+    def off_sequence(self) -> list[str]:
+        """Boundaries (on a mesh) where the stream is not ``Shard(1)``
+        over ``model`` though ``model`` divides its sequence."""
+        return [f"{shape} {pl}" for shape, pl, m in self.seen
+                if shape[1] % m == 0 and pl != Shard(1)]
+
+    def summary(self) -> dict:
+        return {"boundaries": len(self.seen),
+                "off_sequence": self.off_sequence()[:8]}
+
+
+def sp_steps(cfg, mesh=(2, 2), bf16=True) -> dict:
+    """With the rules' default sequence parallelism at ``mesh``: a
+    bfloat16 ``build_train_step`` step's loss (for the test to hold
+    against the reference's), the float32 step against the unsharded
+    ``train_step`` and the float32 ``build_step`` prefill against
+    ``prefill_step``, recording the stream's layout at every block
+    boundary of the sharded runs."""
+    out = {"mesh": list(mesh)}
+    with Boundaries() as seen:
+        if bf16:
+            _, _, built, state = tiny_setup(*mesh, sequence_parallel=True,
+                                            cfg=cfg)
+            out["loss"] = float(built.fn(state, batch_fn(cfg)(0))[1]["loss"])
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        out.update(f32_step_vs_plain(sequence_parallel=True, cfg=cfg32,
+                                     mesh=mesh))
+        rules = MeshRules(make_host_mesh(*mesh))
+        assert rules.sequence_parallel
+        out.update(prefill_vs_plain(cfg32, rules))
+        if cfg.family == "encdec":
+            out.update(cross_vs_plain(cfg32, rules))
+    out.update(seen.summary(), moe=cfg.n_experts > 0)
+    out["ok"] = out["ok"] and bool(seen.seen) and not seen.off_sequence()
+    return out
+
+
+def cross_vs_plain(cfg32, rules) -> dict:
+    """``encdec.encode`` and ``precompute_cross`` (float32) on parameters
+    and frames placed under ``rules`` against the plain calls: the largest
+    cross K/V difference and the largest plain value."""
+    def params():
+        return api.init_params(cfg32, torch.Generator().manual_seed(SEED),
+                               "cpu")
+
+    frames = torch.randn(SHAPE.global_batch, SHAPE.seq_len, cfg32.d_model,
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        plain = params()
+        want = encdec.precompute_cross(
+            plain, encdec.encode(plain, frames, cfg32), cfg32)
+        placed = reshard(params(), rules, rules.param_specs(plain))
+        x = reshard(frames, rules,
+                    rules.batch_specs({"frames": frames})["frames"])
+        with sharding.constrainer(rules.constrain_fn()):
+            got = encdec.precompute_cross(
+                placed, encdec.encode(placed, x, cfg32), cfg32)
+    return {"cross_err": max(float((full(g) - w).abs().max())
+                             for g, w in zip(got, want)),
+            "cross_scale": max(float(w.abs().max()) for w in want)}
+
+
+def _sp_family_check(name):
+    def check(tmp):
+        return sp_steps(smoke(FAMILIES[name][0], **FAMILIES[name][1]))
+
+    check.__name__ = f"check_sp_family_{name}"
+    return check
+
+
+def check_sp_qwen2_1x4(tmp):
+    """qwen2 with the sequence sharded 4 ways over "model" (1, 4)."""
+    return sp_steps(smoke(), mesh=(1, 4))
+
+
+def apply_moe_f32_experts(p, x, cfg):
+    """``models.moe.apply_moe`` with the expert inputs and the combine
+    weights kept in the model's dtype (float32 here) where the port, as
+    the reference, rounds them to bfloat16; the rest is the same code."""
+    F = torch.nn.functional
+    x = sharding.whole_sequence(x)
+    orig_shape = x.shape
+    d = orig_shape[-1]
+    tokens = x.reshape(-1, d)
+    n_tok = tokens.shape[0]
+    gs = min(cfg.moe_group_size, n_tok)
+    g, e = n_tok // gs, cfg.n_experts
+    cap = moe_mod.moe_capacity(cfg, gs)
+    route = lambda t, lg: moe_mod._route_dispatch(t, lg, cfg=cfg, gs=gs)
+    combine = moe_mod._combine
+    if isinstance(x, DTensor):
+        route, combine = moe_mod._regions(x, e, g, cap, d, route, combine)
+    logits = tokens.float() @ p.router
+    xe, slot, top_w, probs, first = route(tokens, logits)      # no rounding
+    xe = sharding.constrain(xe, "expert_tokens")
+    xe = xe.reshape(e, g * cap, d).to(p.wi_gate.dtype)
+    h = F.silu(torch.bmm(xe, p.wi_gate)) * torch.bmm(xe, p.wi_up)
+    ye = sharding.constrain(torch.bmm(h, p.wo).reshape(e, g, cap, d),
+                            "expert_tokens")
+    y = combine(ye, slot, top_w)                                # no rounding
+    if p.shared is not None:
+        y = y + moe_mod.layers.apply_mlp(p.shared, tokens).to(y.dtype)
+    aux = e * torch.sum(first.mean(dim=0) * probs.mean(dim=0))
+    return y.reshape(orig_shape).to(x.dtype), aux
+
+
+def check_moe_moments_f32_experts(tmp):
+    """dbrx and jamba: the float32 sharded step against the unsharded one
+    with :func:`apply_moe_f32_experts` in both, sequence parallelism on
+    and off, with the configs' bfloat16 AdamW moments and with float32
+    ones.  Two roundings move the MoE archs' moments (held to 2**-8 in
+    relative norm): the expert inputs' to bfloat16, and the moments' own
+    (a one-ulp flip of a bfloat16 moment is 2**-8 of it).  Without both
+    they fall to the dense archs' level."""
+    saved = moe_mod.apply_moe
+    moe_mod.apply_moe = apply_moe_f32_experts
+    out = {}
+    try:
+        for name in ("dbrx", "jamba"):
+            for moments in ("bfloat16", "float32"):
+                cfg = smoke(FAMILIES[name][0], **FAMILIES[name][1],
+                            dtype="float32", adam_dtype=moments)
+                for sp in (True, False):
+                    r = f32_step_vs_plain(sequence_parallel=sp, cfg=cfg)
+                    out[f"{name}/sp_{'on' if sp else 'off'}/{moments}"] = {
+                        k: r[k] for k in ("moment_max_rel_norm", "f32_loss",
+                                          "f32_plain_loss", "ok")}
+    finally:
+        moe_mod.apply_moe = saved
+    out["ok"] = all(r["ok"] for r in out.values())
+    return out
+
+
+def check_strict_views(tmp):
+    """The guard, the group's first check: torch 2.11's view rule
+    (:class:`StrictViews`, in force over the whole group) refuses a
+    flatten of a sequence-sharded [B, S, D], and qwen2's float32
+    sequence-parallel step and prefill at (2, 2) run under it with no
+    refusal."""
+    mesh = make_host_mesh(2, 2)
+    x = distribute_tensor(torch.zeros(8, 64, 16), mesh, [Shard(0), Shard(1)],
+                          src_data_rank=None)
+    before = list(_STRICT.refused)
+    try:
+        x.reshape(8 * 64, 16)
+        probe = "not refused"
+    except RuntimeError as e:
+        probe = str(e)
+    del _STRICT.refused[len(before):]
+    cfg32 = smoke(dtype="float32")
+    step = f32_step_vs_plain(sequence_parallel=True, cfg=cfg32)
+    out = {"probe": probe, "checked": _STRICT.checked,
+           "refused": _STRICT.refused[:8], **prefill_vs_plain(
+               cfg32, MeshRules(make_host_mesh(2, 2))),
+           **{k: step[k] for k in ("f32_loss", "f32_plain_loss")}}
+    out["ok"] = (STRICT_VIEW_ERROR.format(1) in probe
+                 and not _STRICT.refused and step["ok"])
+    return out
+
+
+SP_CHECKS = [*map(_sp_family_check, FAMILIES), check_sp_qwen2_1x4]
+
+
+def _sp_card_check(name, arch, changes, mesh):
+    def check(tmp):
+        return sp_steps(smoke(arch, **changes), mesh=mesh, bf16=False)
+
+    check.__name__ = f"check_sp_card_{name}"
+    return check
+
+
+# chip_smoke.py's phase 21 on the card machine's own torch (its rule, not
+# StrictViews): the float32 steps and prefill of every family at (2, 2)
+# and qwen2 at (1, 4)
+SP_CARD_CHECKS = [_sp_card_check(name, arch, changes, (2, 2)) for name,
+                  (arch, changes) in {"qwen2": (ARCH, {}), **FAMILIES}.items()
+                  ] + [_sp_card_check("qwen2_1x4", ARCH, {}, (1, 4))]
+
+
 # name: (world size, checks), one subprocess each
 GROUPS = {"mesh": (4, [check_sharded_train_step, check_checkpoint_roundtrip,
                        check_crash_resume_bitwise, check_elastic_reshard,
@@ -546,15 +850,21 @@ GROUPS = {"mesh": (4, [check_sharded_train_step, check_checkpoint_roundtrip,
           "families": (4, [*map(_family_check, FAMILIES),
                            check_moe_groups_over_data,
                            check_engines_with_rules]),
-          "dryrun": (4, [check_dryrun_traces, check_attention_layouts])}
+          "dryrun": (4, [check_dryrun_traces, check_attention_layouts]),
+          "sequence_parallel_families": (
+              4, [check_strict_views, *SP_CHECKS,
+                  check_moe_moments_f32_experts], strict_views),
+          "sequence_parallel_card": (4, SP_CARD_CHECKS)}
 
 
 def _rank(rank: int, group: str, store_path: str, out: str) -> None:
-    world, checks = GROUPS[group]
+    world, checks, *setup = GROUPS[group]
     torch.set_num_threads(1)
     dist.init_process_group(
         "gloo", store=dist.FileStore(store_path, world), rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    for fn in setup:
+        fn()
     results = {}
     tmp = pathlib.Path(out).parent
     try:
