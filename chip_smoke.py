@@ -45,9 +45,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 8. hold the flash-attention kernel against its plain version at the
    training shape (B 4 x H 12 x S 4,096 x D 128, causal, bf16 and f32) and
    at non-causal, window-96, GQA 12/2, query-offset and ragged-tail
-   shapes; hold blocked attention's grads (kernel forward, chunked
-   backward) against autograd through the plain reference attention at S
-   2,048; time kernel, plain version and SDPA against the bound;
+   shapes, the last three at D 80 too (h2o-danube's width: the
+   tensor-core route in bf16), each launch counted on the route
+   ``flash_attention.route`` names; hold blocked attention's grads
+   (kernel forward, chunked backward) against autograd through the plain
+   reference attention at S 2,048; time kernel, plain version and SDPA
+   against the bound;
 9. train full-width qwen2-1.5b (random weights from seed 0) through
    ``repro_torch.launch.train_lm``'s pieces: ``synthetic_batch`` ->
    ``RunaheadLoader`` (depth 2) -> ``train_step`` (AdamW) ->
@@ -201,8 +204,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     kernel's plain version); phi3-medium-14b served at its 40 layers
     (10 KV heads) and trained at 8 (B 2, its 2 microbatches);
     h2o-danube-1.8b at full depth: prefill at B 2 x S 8,192 past its
-    4,096 window (24 flash launches on the scalar route, the kernel timed
-    there against its plain version, SDPA and the bound), 8 greedy
+    4,096 window (24 flash launches, all on the tensor-core route at its
+    heads of 80, the kernel timed there against its plain version, SDPA
+    and the bound), 8 greedy
     lockstep decode steps on its ring cache, 2 training steps, and in
     float32 at 2 layers prefill vs 5,120 decode steps within 1e-3 of the
     logit std; llama4-scout-17b-a16e served at 8 of 48 layers (top-1
@@ -1159,15 +1163,26 @@ def phase_flash(flush: torch.Tensor) -> dict:
         ("tail S 1000", 2, 12, 12, 1000, 1000, 128, True, None, 0),
         ("tail S 1000, D 72 (scalar route)", 2, 12, 12, 1000, 1000, 72,
          True, None, 0),
+        # h2o-danube's width: two 64-column halves, the second zero-filled
+        ("window 96, D 80", 2, 12, 12, 1024, 1024, 80, True, 96, 0),
+        ("tail S 1000, D 80", 2, 12, 12, 1000, 1000, 80, True, None, 0),
+        ("query offset 700, D 80", 2, 12, 12, 324, 1024, 80, True, 96, 700),
     ]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype).split(".")[-1]
         for cname, b, h, hkv, sq, sk, d, causal, window, off in cases:
             q, k, v = qkv(b, h, hkv, sq, sk, d, dtype)
+            routes = dict(kernel.flash_attention.route_launches)
             y, lse = ops.attention(q, k, v, causal=causal, window=window,
                                    q_offset=off, return_lse=True)
             torch.cuda.synchronize()
+            route = kernel.route(dtype, d)
+            routes[route] += 1
+            if kernel.flash_attention.route_launches != routes:
+                raise AssertionError(
+                    f"flash_attention {name} {cname}: launches by route "
+                    f"{kernel.flash_attention.route_launches} != {routes}")
             ke = k.repeat_interleave(h // hkv, dim=1)
             ve = v.repeat_interleave(h // hkv, dim=1)
             want_y, want_lse = ref.attention_ref(q, ke, ve, causal=causal,
@@ -1188,7 +1203,7 @@ def phase_flash(flush: torch.Tensor) -> dict:
             print(f"phase 8: flash_attention {name} {cname} (B {b}, H "
                   f"{h}/{hkv}, Sq {sq}, Sk {sk}, D {d}, causal {causal}, "
                   f"window {window}, q_offset {off}; route "
-                  f"{kernel.route(dtype, d)}): y max abs err {err:.3e} "
+                  f"{route}): y max abs err {err:.3e} "
                   f"(tol {TOL[dtype]}), lse {lse_err:.3e} (tol 1e-4)"
                   f"{tiled}", flush=True)
             del q, k, v, ke, ve, y, lse
@@ -2785,8 +2800,9 @@ def kernel_counters() -> dict:
 
 class Launches:
     """Counters set to 0 on entry and read on exit (``.n``, by name); the
-    SSD kernel's launches by route beside (``.routes``).  Every read is
-    added to ``total``, the phase's sum by kernel."""
+    SSD and flash kernels' launches by route beside (``.routes``,
+    ``.flash_routes``).  Every read is added to ``total``, the phase's sum
+    by kernel."""
 
     def __init__(self, total: dict):
         self.total = total
@@ -2796,12 +2812,16 @@ class Launches:
         for fn in self.counters.values():
             fn.launches = 0
         self.counters["ssd_scan"].route_launches.update(simt=0, mma=0)
+        self.counters["flash_attention"].route_launches.update(simt=0,
+                                                               mma=0)
         return self
 
     def __exit__(self, *exc):
         torch.cuda.synchronize()
         self.n = {k: fn.launches for k, fn in self.counters.items()}
         self.routes = dict(self.counters["ssd_scan"].route_launches)
+        self.flash_routes = dict(
+            self.counters["flash_attention"].route_launches)
         for k, v in self.n.items():
             self.total[k] = self.total.get(k, 0) + v
         return False
@@ -3808,9 +3828,10 @@ def token_arch(name: str, serve_layers, train_layers, bs: tuple, accum,
 
 def danube_arch(total: dict) -> dict:
     """h2o-danube-1.8b: full-depth prefill past its window (flash on the
-    simt route at D 80), the lockstep loop on its ring cache, training,
-    and prefill vs decode in f32 past the window; returns the flash
-    kernel's times at the prefill's attention shape."""
+    tensor-core route at D 80), the lockstep loop on its ring cache,
+    training, and prefill vs decode in f32 past the window (the scalar
+    route); returns the flash kernel's times at the prefill's attention
+    shape and the prefill's launches by route."""
     from repro_torch.configs import registry
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -3819,9 +3840,9 @@ def danube_arch(total: dict) -> dict:
 
     cfg = registry.get("h2o-danube-1.8b")
     route = fa.route(torch.bfloat16, cfg.head_dim)
-    if route != "simt":
+    if route != "mma":
         raise AssertionError(f"flash route for bf16 D {cfg.head_dim} is "
-                             f"{route}; want simt")
+                             f"{route}; want mma")
     params = api_init(cfg)
     n_params = sum(p.numel() for p in params.parameters())
     arch_line(cfg, n_params, f"full depth ({cfg.n_layers} layers)")
@@ -3843,6 +3864,10 @@ def danube_arch(total: dict) -> dict:
     flash_ms = [s.elapsed_time(e) for s, e in timed.events]
     peak = torch.cuda.max_memory_allocated()
     n.expect("danube prefill", flash_attention=cfg.n_layers)
+    if n.flash_routes != {"mma": cfg.n_layers, "simt": 0}:
+        raise AssertionError(f"danube prefill: flash launches by route "
+                             f"{n.flash_routes}; want all {cfg.n_layers} "
+                             f"on mma")
     if not (logits.shape == (DANUBE_B, cfg.vocab_size)
             and torch.isfinite(logits).all()):
         raise AssertionError(f"danube prefill logits {tuple(logits.shape)}, "
@@ -3851,7 +3876,7 @@ def danube_arch(total: dict) -> dict:
           f"(window {cfg.window} masks): {prefill_ms:.2f} ms (CUDA events) "
           f"= {DANUBE_B * DANUBE_S / prefill_ms * 1e3:.1f} tokens/s; "
           f"flash_attention launches {n.n['flash_attention']} = "
-          f"{cfg.n_layers} layers, route {route}; flash "
+          f"{cfg.n_layers} layers, by route {n.flash_routes}; flash "
           f"{sum(flash_ms):.2f} ms of the prefill (per launch median "
           f"{statistics.median(flash_ms):.3f}, min {min(flash_ms):.3f}, max "
           f"{max(flash_ms):.3f}); logits finite, std "
@@ -3919,11 +3944,13 @@ def danube_arch(total: dict) -> dict:
           f"steps on the {cfg.window}-slot ring: last-position max abs "
           f"logit diff {err:.3e} (tol 1e-3 x logit std {std:.4f} = "
           f"{1e-3 * std:.3e}) in {time.monotonic() - t0:.1f} s", flush=True)
-    return flash_times(
+    times = flash_times(
         "20", "danube's prefill shape",
         (DANUBE_B, cfg.n_heads, DANUBE_S, cfg.head_dim),
         torch.empty(64 * 2**20, dtype=torch.int32, device="cuda"),
         causal=True, window=cfg.window, seed=20, iters=10, plain_iters=5)
+    return dict(times, prefill_route_launches=n.flash_routes,
+                prefill_ms=prefill_ms)
 
 
 def whisper_train(total: dict) -> None:
@@ -3961,7 +3988,7 @@ def phase_archs() -> dict:
     print(f"phase 20: five archs and whisper's training in "
           f"{time.monotonic() - t0:.1f} s; launches {json.dumps(total)}; "
           f"{card_line()}", flush=True)
-    return {"launches": total, "danube_simt": danube,
+    return {"launches": total, "danube_flash": danube,
             "train_shapes": shapes}
 
 
@@ -4021,7 +4048,7 @@ def phases(sweep, workers: int, start: float) -> int:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 kernel = line.split("'")[1] if "'" in line else line.strip()
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or "C751" in line:
                 print(f"phase 2: {name}: {kernel}: {line.strip()}")
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
@@ -4177,7 +4204,7 @@ def phases(sweep, workers: int, start: float) -> int:
                               "19": p19["flash_attention"],
                               "20": p20["flash_attention"]},
         **flash, "whisper_encoder": whisper_flash,
-        "danube_simt": archs["danube_simt"],
+        "danube_flash": archs["danube_flash"],
         "phase20_training_shapes": archs["train_shapes"],
         "custom_op_us": dry["overhead"]["flash_attention"]})
     for name, line in (("moe_dispatch", 45), ("moe_combine", 106)):

@@ -19,9 +19,10 @@
 // byte at S = 4,096, D = 128, far above the ~295 where the tensor cores
 // (989 TFLOP/s bf16) overtake the memory (3.35 TB/s).  So the design keeps
 // the tensor cores fed and the other work off their path:
-//   * bf16 with D = 64 or 128 (flash_wgmma_kernel) runs both products on
-//     wgmma, the only instruction that reaches the card's bf16 rate: one
-//     block per (batch*head, 128-row query tile), three warpgroups;
+//   * bf16 with D a multiple of 16 in [64, 128] (flash_wgmma_kernel: 64,
+//     80 (h2o-danube's heads), 96, 112, 128) runs both products on wgmma,
+//     the only instruction that reaches the card's bf16 rate: one block
+//     per (batch*head, 128-row query tile), three warpgroups;
 //   * a producer warp (its warpgroup's registers handed to the consumers
 //     by setmaxnreg) issues TMA loads: Q once, then K and V tiles of 64
 //     keys into a 2-stage ring in shared memory, each slot tracked by
@@ -31,13 +32,19 @@
 //     instructions on addresses.  The tensor maps are 3-D [BH, S, D] with a
 //     128-byte swizzle (D in 64-column halves), so a tile past S zero-fills
 //     inside its own head and the tiles land in the layout wgmma reads
-//     without bank conflicts;
-//   * two consumer warpgroups of 64 query rows each: S = Q.K^T by wgmma
-//     m64n64k16 with both operands in shared memory; the online softmax on
-//     the accumulator registers (f32 m, l, acc; exp2 of log2-scaled
-//     scores); p rounded to bf16 in registers becomes the A operand of
-//     O += P.V (wgmma m64nDk16, A from registers, V read MN-major through
-//     the descriptor's transpose bit), so P never touches shared memory.
+//     without bank conflicts.  A D between 64 and 128 takes two halves: the
+//     map's row is the head's own (D columns, 2 D bytes; a map of 128
+//     columns would read the next row), so the second half's box reads
+//     columns 64..D-1 and zero-fills the rest, and the barriers count the
+//     box's whole 128 columns, which is what the TMA credits;
+//   * two consumer warpgroups of 64 query rows each: S = Q.K^T by D / 16
+//     wgmma m64n64k16 with both operands in shared memory (none over
+//     zero-filled columns); the online softmax on the accumulator registers
+//     (f32 m, l, acc; exp2 of log2-scaled scores); p rounded to bf16 in
+//     registers becomes the A operand of O += P.V (wgmma m64nDk16, A from
+//     registers, V read MN-major through the descriptor's transpose bit,
+//     its N = D columns running from the first half into the second), so
+//     P never touches shared memory.
 //     Tile i's Q.K^T is issued before tile i-1's P.V and only its own wait
 //     precedes tile i's softmax, so the softmax runs under the P.V; the
 //     other warpgroup's products fill the tensor cores in between;
@@ -54,7 +61,9 @@
 //   * float32, and bf16 of any other D (row a multiple of 16 bytes, D <=
 //     256), runs a scalar kernel (flash_simt_kernel): 32 query rows a
 //     block, 4 threads a row, f32 FMA from shared memory (the tensor cores
-//     have no float32 path that keeps float32 accuracy).
+//     have no float32 path that keeps float32 accuracy; bf16 wider than 128
+//     would need a 64 x D f32 accumulator a consumer, past the 168
+//     registers a thread).
 // Not yet: a persistent grid, a TMA store of y, a schedule that makes the
 // two consumers' products take turns (tried with named barriers: no gain).
 
@@ -245,13 +254,22 @@ constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Tiles are [D / 64 halves][rows][64] bf16, each half 128-byte swizzled by
-// TMA and 1024-byte aligned (the swizzle repeats every 8 rows of 128 B).
+// Columns a head of D takes in shared memory: whole 64-column halves (D
+// itself at 64 and 128; 128 at 80, 96 and 112, whose columns past D the
+// TMA zero-fills, as it fills rows past S).
+template <int D>
+__host__ __device__ constexpr int padded() {
+  return (D + kHalf - 1) / kHalf * kHalf;
+}
+
+// Tiles are [padded D / 64 halves][rows][64] bf16, each half 128-byte
+// swizzled by TMA and 1024-byte aligned (the swizzle repeats every 8 rows
+// of 128 B).
 template <int D>
 struct __align__(1024) MmaSmem {
-  bf16 q[D / kHalf][kMmaRows * kHalf];
-  bf16 k[kStages][D / kHalf][kMmaKeys * kHalf];
-  bf16 v[kStages][D / kHalf][kMmaKeys * kHalf];
+  bf16 q[padded<D>() / kHalf][kMmaRows * kHalf];
+  bf16 k[kStages][padded<D>() / kHalf][kMmaKeys * kHalf];
+  bf16 v[kStages][padded<D>() / kHalf][kMmaKeys * kHalf];
   uint64_t q_full, k_full[kStages], v_full[kStages];
   uint64_t k_empty[kStages], v_empty[kStages];
 };
@@ -400,6 +418,65 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 80] += A[64 x 16] * B[16 x 80], as wgmma_rs_n128.
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 96] += A[64 x 16] * B[16 x 96], as wgmma_rs_n128.
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 112] += A[64 x 16] * B[16 x 112], as wgmma_rs_n128.
+__device__ __forceinline__ void wgmma_rs_n112(float (&d)[56],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x D] += P.V over the D columns of V (wgmma's N is any multiple of 8
+// up to 256, so no product runs over the zero-filled columns).
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4], uint64_t db);
@@ -408,6 +485,24 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
                                              const uint32_t (&a)[4],
                                              uint64_t db) {
   wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<80>(float (&o)[40],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n80(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<96>(float (&o)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n96(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<112>(float (&o)[56],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n112(o, a, db);
 }
 template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
@@ -485,11 +580,12 @@ static_assert(kMmaKeys == 64, "issue_qk's product is wgmma m64n64k16");
 
 // S = Q.K^T for this consumer's 64 rows: K-major operands, k-steps of 16
 // columns (32 bytes) inside a 128-byte swizzled half, 8-row groups 1024
-// bytes apart.
+// bytes apart; D / 16 k-steps, none over the zero-filled columns (k-step 4
+// is the second half's first 16 columns).
 template <int D>
 __device__ __forceinline__ void issue_qk(float (&sc)[kMmaKeys / 2],
-                                         const bf16 (&q)[D / kHalf][kMmaRows * kHalf],
-                                         const bf16 (&k)[D / kHalf][kMmaKeys * kHalf],
+                                         const bf16 (&q)[padded<D>() / kHalf][kMmaRows * kHalf],
+                                         const bf16 (&k)[padded<D>() / kHalf][kMmaKeys * kHalf],
                                          int c) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
@@ -503,10 +599,11 @@ __device__ __forceinline__ void issue_qk(float (&sc)[kMmaKeys / 2],
 
 // O += P.V: V is MN-major (D contiguous): 64-column halves kMmaKeys * 128
 // bytes apart (LBO), 8-key groups 1024 bytes apart (SBO), a k-step of 16
-// keys 2048 bytes.
+// keys 2048 bytes; the product's N columns run on from the first half into
+// the second.
 template <int D>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const PFrag& pa,
-                                         const bf16 (&v)[D / kHalf][kMmaKeys * kHalf]) {
+                                         const bf16 (&v)[padded<D>() / kHalf][kMmaKeys * kHalf]) {
 #pragma unroll
   for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
     const uint64_t db = wgmma_desc(&v[0][kk * 16 * kHalf],
@@ -525,8 +622,9 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   extern __shared__ unsigned char smem_raw[];
   MmaSmem<D>& sm = *reinterpret_cast<MmaSmem<D>*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  constexpr int kHalves = D / kHalf;
-  constexpr uint32_t kTileBytes = kMmaKeys * D * sizeof(bf16);
+  // the TMA credits a box's zero-filled columns too: count padded ones
+  constexpr int kHalves = padded<D>() / kHalf;
+  constexpr uint32_t kTileBytes = kMmaKeys * padded<D>() * sizeof(bf16);
 
   const int bh = blockIdx.x;
   const int r0 = (gridDim.y - 1 - blockIdx.y) * kMmaRows;
@@ -550,7 +648,7 @@ __global__ void __launch_bounds__(kMmaThreads, 1)
   if (wg == 0) {  // producer: one thread issues every copy
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
     if (threadIdx.x == 0 && n_tiles > 0) {
-      mbar_expect_tx(&sm.q_full, kMmaRows * D * sizeof(bf16));
+      mbar_expect_tx(&sm.q_full, kMmaRows * padded<D>() * sizeof(bf16));
       for (int h = 0; h < kHalves; ++h)
         tma_load(sm.q[h], &tq, h * kHalf, r0, bh, &sm.q_full);
       for (int i = 0; i < n_tiles; ++i) {
@@ -762,7 +860,8 @@ int launch_simt(const Params& p, int bh, cudaStream_t stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  tensor_cores: 1 takes the wgmma
-// kernel (bf16 with D 64 or 128 only), 0 the scalar one (D <= 256).
+// kernel (bf16 with D 64, 80, 96, 112 or 128 only), 0 the scalar one
+// (D <= 256).
 // window < 0 means no window.  Returns a cudaError_t (0 = launched;
 // cudaErrorNotSupported if the driver has no cuTensorMapEncodeTiled).
 int flash_attention_launch(int dtype, int tensor_cores, const void* q,
@@ -778,6 +877,9 @@ int flash_attention_launch(int dtype, int tensor_cores, const void* q,
   if (tensor_cores) {
     if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
     if (d == 64) return launch_wgmma<64>(p, bh, s);
+    if (d == 80) return launch_wgmma<80>(p, bh, s);
+    if (d == 96) return launch_wgmma<96>(p, bh, s);
+    if (d == 112) return launch_wgmma<112>(p, bh, s);
     if (d == 128) return launch_wgmma<128>(p, bh, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }

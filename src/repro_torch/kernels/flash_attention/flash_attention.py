@@ -5,7 +5,8 @@ route (:func:`route`), launches on PyTorch's current stream without
 synchronising, and raises if the launch is refused.  The kernel is built at
 first use (:mod:`repro_torch.kernels._build`).
 :attr:`flash_attention.launches` counts launches and nothing else, so a
-training step can show that its attention went through the kernel.
+training step can show that its attention went through the kernel;
+:attr:`flash_attention.route_launches` counts them by route.
 """
 from __future__ import annotations
 
@@ -18,7 +19,8 @@ import torch
 from .. import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TENSOR_CORE_DIMS = (64, 128)      # bf16 head widths the wgmma kernel takes
+# bf16 head widths the wgmma kernel takes: multiples of 16 in [64, 128]
+TENSOR_CORE_DIMS = tuple(range(64, 129, 16))
 MAX_D = 256                       # the scalar kernel's widest head
 _INT32_MAX = 2**31 - 1
 # flash_attention_launch(dtype, tensor_cores, q, k, v, y, lse, bh, sq, sk,
@@ -36,8 +38,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def route(dtype: torch.dtype, d: int) -> str:
-    """``"mma"`` (tensor cores: TMA and wgmma) for bf16 heads of 64 or
-    128, else ``"simt"`` (scalar f32 FMA)."""
+    """``"mma"`` (tensor cores: TMA and wgmma) for bf16 heads of 64, 80,
+    96, 112 or 128, else ``"simt"`` (scalar f32 FMA)."""
     return ("mma" if dtype == torch.bfloat16 and d in TENSOR_CORE_DIMS
             else "simt")
 
@@ -85,6 +87,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     _check(q, k, v, window, q_offset)
     b, h, sq, d = q.shape
     sk = k.shape[2]
+    use = route(q.dtype, d)
     y = torch.empty_like(q)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     if y.numel() == 0 or sk == 0:
@@ -95,7 +98,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
-            _DTYPE_CODES[q.dtype], int(route(q.dtype, d) == "mma"),
+            _DTYPE_CODES[q.dtype], int(use == "mma"),
             q.data_ptr(), k.data_ptr(), v.data_ptr(), y.data_ptr(),
             lse.data_ptr(), b * h, sq, sk, d, int(causal),
             -1 if window is None else window, q_offset,
@@ -104,7 +107,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {err}")
     flash_attention.launches += 1
+    flash_attention.route_launches[use] += 1
     return y, lse
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = {"mma": 0, "simt": 0}

@@ -19,8 +19,10 @@ attention split across blocks at lengths that cross split boundaries,
 zero-length rows, rep 1 to 8 over 2 to 10 KV heads (the head
 geometries of phi3-medium, internlm2, llama4-scout and internvl2),
 D 64, 80 and 128, pages of 16 and 32 and 8 rows of 4,096 tokens, flash
-at h2o-danube's D 80 with its 4,096 window over 8,192 positions (the
-scalar route) and at 40 and 64 query heads on the wgmma route, MoE
+at h2o-danube's D 80 with its 4,096 window over 8,192 positions, the
+wgmma route at D 80, 96 and 112 (two halves, the second zero-filled past
+D) at its tile edges, a window, a masked first tile and GQA 32/8, and at
+40 and 64 query heads of 128, MoE
 dispatch and combine at T = 1, K = 1 (llama4's top-1 at D 5,120) and 8,
 and with every choice dropped
 (combine bit for bit at T 1 to 4,096, its rows split over blocks and not),
@@ -588,22 +590,63 @@ def test_flash_attention_at_whispers_encoder_shape(card, dtype, s):
 
 
 def test_flash_attention_at_danubes_window(card):
-    """h2o-danube's prefill attention: bf16 heads of 80 (the scalar route),
+    """h2o-danube's prefill attention: bf16 heads of 80 (the wgmma route),
     causal, window 4,096 over 8,192 positions, so the window masks every
     row past 4,096."""
     q, k, v = _qkv(1, 4, 8192, 8192, 80, torch.bfloat16, card, seed=13)
-    assert fa_kernel.route(q.dtype, 80) == "simt"
+    assert fa_kernel.route(q.dtype, 80) == "mma"
     mask = dict(causal=True, window=4096)
     before = fa_kernel.flash_attention.launches
+    mma = fa_kernel.flash_attention.route_launches["mma"]
     y, lse = fa_kernel.flash_attention(q, k, v, **mask)
     torch.cuda.synchronize()
     assert fa_kernel.flash_attention.launches == before + 1
+    assert fa_kernel.flash_attention.route_launches["mma"] == mma + 1
     want_y, want_lse = fa_ref.attention_ref(q, k, v, **mask)
     assert torch.isfinite(y.float()).all() and torch.isfinite(lse).all()
     assert (y.float() - want_y.float()).abs().max().item() \
         <= FLASH_TOL[torch.bfloat16]
     assert (lse - want_lse).abs().max().item() <= 1e-4
-    assert _tiled_gate(y, q, k, v, "simt", **mask) <= 1.0
+    assert _tiled_gate(y, q, k, v, "mma", **mask) <= 1.0
+
+
+# h, hkv, sq, sk, causal, window, q_offset
+MID_WIDTH_CASES = {
+    "Sq 127 Sk 63": (3, 3, 127, 63, True, None, 0),
+    "Sq 129 Sk 65": (3, 3, 129, 65, False, None, 0),
+    "Sq 255 Sk 129": (3, 3, 255, 129, True, None, 0),
+    "window 96": (3, 3, 256, 256, True, 96, 0),
+    # the first loaded key tile (64-127) masks every key of the last rows
+    "q_offset 190 window 70": (3, 3, 100, 300, True, 70, 190),
+    "GQA 32/8": (32, 8, 512, 512, True, 128, 0),
+}
+
+
+@pytest.mark.parametrize("d", [80, 96, 112])
+@pytest.mark.parametrize("case", list(MID_WIDTH_CASES))
+def test_flash_attention_wgmma_route_between_64_and_128(card, d, case):
+    """bf16 heads of 80, 96 and 112 on the wgmma route, through
+    ``ops.attention``: the second 64-column half read from a map of the
+    head's own width and zero-filled past D, at the 128-row and 64-key
+    tiles' edges, in a window, with a masked first tile and over GQA;
+    each launch counted on the mma route."""
+    h, hkv, sq, sk, causal, window, q_offset = MID_WIDTH_CASES[case]
+    q, _, _ = _qkv(1, h, sq, sk, d, torch.bfloat16, card, seed=d)
+    _, k, v = _qkv(1, hkv, sq, sk, d, torch.bfloat16, card, seed=d + 1)
+    assert fa_kernel.route(q.dtype, d) == "mma"
+    mask = dict(causal=causal, window=window, q_offset=q_offset)
+    routes = dict(fa_kernel.flash_attention.route_launches)
+    y, lse = fa_ops.attention(q, k, v, return_lse=True, **mask)
+    torch.cuda.synchronize()
+    assert fa_kernel.flash_attention.route_launches == dict(
+        routes, mma=routes["mma"] + 1)
+    kr, vr = (t.repeat_interleave(h // hkv, dim=1) for t in (k, v))
+    want_y, want_lse = fa_ref.attention_ref(q, kr, vr, **mask)
+    assert torch.isfinite(y.float()).all() and torch.isfinite(lse).all()
+    assert (y.float() - want_y.float()).abs().max().item() \
+        <= FLASH_TOL[torch.bfloat16]
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    assert _tiled_gate(y, q, kr, vr, "mma", **mask) <= 1.0
 
 
 @pytest.mark.parametrize("h,hkv", [(40, 10), (40, 8), (64, 8)])

@@ -5,7 +5,9 @@ takes its plain PyTorch version for CPU tensors) and to the reference's
 Pallas kernel in interpret mode (``fa_ops.attention(impl="pallas",
 interpret=True)``); the port's row log-sum-exp and its ``q_offset`` are
 held against the training path's forward, ``layers._blocked_fwd_impl``.
-The cases mirror tests/test_kernels.py's flash-attention sweep.
+The cases mirror tests/test_kernels.py's flash-attention sweep, plus
+h2o-danube's heads of 80 (8 query heads over 2 KV heads), the width the
+tensor-core route takes besides 64 and 128.
 Tolerances are that file's ``TOLS``: f32 1e-5, bf16 3e-2; lse (float32
 in both, from the same float32 scores) 1e-5.
 """
@@ -46,10 +48,14 @@ def _t(x):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal,window", [(True, None), (True, 96),
                                            (False, None)])
-@pytest.mark.parametrize("s,hq,hkv", [(256, 4, 4), (256, 4, 2)])
+@pytest.mark.parametrize("s,hq,hkv,d", [
+    pytest.param(256, 4, 4, 128, id="256-4-4"),
+    pytest.param(256, 4, 2, 128, id="256-4-2"),
+    pytest.param(256, 8, 2, 80, id="256-8-2-80"),     # h2o-danube's heads
+])
 def test_attention_matches_the_pallas_kernel(dtype, causal, window, s, hq,
-                                             hkv):
-    q, k, v = _inputs(dtype, 2, hq, hkv, s, s, 128, seed=2)
+                                             hkv, d):
+    q, k, v = _inputs(dtype, 2, hq, hkv, s, s, d, seed=2)
     want = jax_fa_ops.attention(q, k, v, causal=causal, window=window,
                                 impl="pallas", interpret=True)
     before = kernel.flash_attention.launches
@@ -83,19 +89,24 @@ def test_lse_and_offset_match_the_training_forward(dtype, sq, sk, causal,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("sq,sk,causal,window,q_offset", [
-    (200, 200, True, None, 0),            # tail: 200 is not a multiple of 64
-    (128, 128, False, None, 0),
-    (128, 128, True, 24, 0),
-    (40, 160, True, 30, 120),             # first tiles fully masked
-    (48, 48, True, 0, 0),                 # no row sees a key
+@pytest.mark.parametrize("sq,sk,causal,window,q_offset,d", [
+    # tail: 200 is not a multiple of 64
+    pytest.param(200, 200, True, None, 0, 16, id="200-200-True-None-0"),
+    pytest.param(128, 128, False, None, 0, 16, id="128-128-False-None-0"),
+    pytest.param(128, 128, True, 24, 0, 16, id="128-128-True-24-0"),
+    # first tiles fully masked
+    pytest.param(40, 160, True, 30, 120, 16, id="40-160-True-30-120"),
+    # no row sees a key
+    pytest.param(48, 48, True, 0, 0, 16, id="48-48-True-0-0"),
+    # h2o-danube's width: a tail, a window and a fully masked first tile
+    pytest.param(200, 260, True, 96, 60, 80, id="200-260-True-96-60-80"),
 ])
 def test_tiled_order_matches_the_plain_version(dtype, sq, sk, causal, window,
-                                               q_offset):
+                                               q_offset, d):
     """The kernel-order version (64-key tiles, running max, unnormalised p
     rounded) that the card's check holds the bf16 kernel to computes the
     plain version's function; p_max is the row's largest probability."""
-    q, k, v = (_t(a) for a in _inputs(dtype, 2, 3, 3, sq, sk, 16, seed=6))
+    q, k, v = (_t(a) for a in _inputs(dtype, 2, 3, 3, sq, sk, d, seed=6))
     want_y, want_lse = ref.attention_ref(q, k, v, causal=causal,
                                          window=window, q_offset=q_offset)
     y, lse, p_max = ref.attention_tiled(q, k, v, causal=causal,
@@ -104,7 +115,7 @@ def test_tiled_order_matches_the_plain_version(dtype, sq, sk, causal, window,
     np.testing.assert_allclose(y.float().numpy(), want_y.float().numpy(),
                                **TOLS[dtype])
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), **LSE_TOL)
-    s = (q.float() @ k.float().transpose(-1, -2)) / 4.0
+    s = (q.float() @ k.float().transpose(-1, -2)) / d ** 0.5
     q_pos = q_offset + torch.arange(sq)[:, None]
     k_pos = torch.arange(sk)[None, :]
     seen = (q_pos >= k_pos) if causal else torch.ones(sq, sk, dtype=bool)
@@ -125,10 +136,27 @@ def test_gqa_is_expanded_by_repeat():
 
 
 def test_kernel_routes():
-    assert kernel.route(torch.bfloat16, 128) == "mma"
-    assert kernel.route(torch.bfloat16, 64) == "mma"
-    assert kernel.route(torch.bfloat16, 72) == "simt"
-    assert kernel.route(torch.float32, 128) == "simt"
+    """bf16 heads of a multiple of 16 in [64, 128] take the tensor cores;
+    float32, other bf16 widths and heads past 128 the scalar kernel."""
+    for d in (64, 80, 96, 112, 128):
+        assert kernel.route(torch.bfloat16, d) == "mma"
+    for d in (72, 144):
+        assert kernel.route(torch.bfloat16, d) == "simt"
+    for d in (80, 128):
+        assert kernel.route(torch.float32, d) == "simt"
+
+
+def test_mma_widths_match_the_launcher():
+    """The widths ``route`` sends to the tensor cores are exactly those
+    ``flash_attention_launch`` instantiates the wgmma kernel for (any other
+    would be refused on the card)."""
+    src = _build.SOURCES["flash_attention"].read_text()
+    body = re.search(r"int flash_attention_launch\(.*?\n}\n", src,
+                     re.S).group(0)
+    launched = {int(d) for d in re.findall(r"launch_wgmma<(\d+)>", body)}
+    routed = {d for d in range(16, kernel.MAX_D + 1, 8)
+              if kernel.route(torch.bfloat16, d) == "mma"}
+    assert routed == launched == set(kernel.TENSOR_CORE_DIMS)
 
 
 def test_ctypes_signature_matches_the_source():
