@@ -237,7 +237,29 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     prefill against ``prefill_step`` (within 1e-5 of the largest plain
     logit, 2**-8 for the MoE archs), the residual stream ``Shard(1)``
     over ``model`` at every block boundary of the sharded runs; printed
-    with ``torch.__version__``, each error and the seconds.
+    with ``torch.__version__``, each error and the seconds;
+22. serve Poisson traffic through ``repro_torch.launch.serve_traffic``'s
+    ``run_traffic`` (the engine under ``serve.drive``'s virtual clock) at
+    full-width qwen2-1.5b, the ``--full`` workload (32 requests, seed 7,
+    500 virtual requests/s, prompts of 32-384 and outputs of 16-128
+    tokens, half sampled) on 8 slots, max_len 512, pages of 16, chunks of
+    64, with a pool of 97 pages (preemption of the youngest, re-prefill of
+    prompt and generated tokens, pages reused with their last owner's K/V
+    in them) and a full one, in bfloat16 at 28 layers and in float32 on
+    the first 16 requests with the logits captured; every kernel counter
+    set to 0 just before each run and read just after: every request
+    finished with its ``max_new_tokens``, 0 page leaks, paged launches =
+    decode steps x 28 and no other launch, each run's schedule (steps,
+    decode steps, prefill chunks, preemptions, each request's preemptions)
+    equal to that of the same requests through a 1-layer smoke engine on
+    the host, both pressured runs preempting, and in float32 every stream,
+    greedy and sampled, equal between the pressured and the full pool
+    unless it flips where the full pool's top-two gap is below 10 x the
+    largest logit difference at the positions before (each flip printed);
+    bfloat16's equal streams and first divergences are reported.  Printed:
+    wall tokens/s, decode-step and prefill-chunk ms p50 / p99, the extra
+    prefill chunks preemption cost, virtual TTFT and ITL p50 / p99, peak
+    memory.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -3992,6 +4014,212 @@ def phase_archs() -> dict:
             "train_shapes": shapes}
 
 
+# phase 22: launch/serve_traffic.py's --full workload (32 requests, seed 7,
+# 500 virtual requests/s) through the engine, its page pool undersized
+# (1 + 8 x 12 = 97 pages) and fully provisioned
+TRAFFIC_F32_SPECS = 16             # the float32 pair's first specs
+FLIP_FACTOR = 10.0
+
+
+def cpu_schedule(cfg, specs, n_pages) -> dict:
+    """The schedule of ``specs`` through a 1-layer float32 smoke engine on
+    the host, their tokens taken into its vocabulary: with no stop token it
+    depends on the requests' lengths and arrivals only."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve_traffic as st
+    from repro_torch.models import api
+
+    smoke = dataclasses.replace(registry.smoke(cfg.name), n_layers=1,
+                                dtype="float32")
+    params = api.init_params(smoke, torch.Generator().manual_seed(0), "cpu")
+    specs = [dataclasses.replace(
+        s, prompt=[t % smoke.vocab_size for t in s.prompt]) for s in specs]
+    return st.schedule(st.run_traffic(smoke, params, specs, st.FULL,
+                                      n_pages=n_pages, device="cpu"))
+
+
+def traffic_run(cfg, params, specs, n_pages, total: dict,
+                capture: bool = False) -> dict:
+    """``serve_traffic.run_traffic`` at the card's geometry with every
+    kernel counter set to 0 just before and read just after.  Gates: each
+    request finished with its ``max_new_tokens``, 0 page leaks (checked by
+    ``run_traffic``), paged launches = decode steps x layers and nothing
+    else, and the schedule equal to the host's (``cpu_schedule``)."""
+    from repro_torch.launch import serve_traffic as st
+    from repro_torch.serve.scheduler import RequestState
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    with Launches(total) as n:
+        out = st.run_traffic(cfg, params, specs, st.FULL, n_pages=n_pages,
+                             capture_logits=capture)
+    out["peak"] = torch.cuda.max_memory_allocated()
+    sched = st.schedule(out)
+    pool = n_pages or "all"
+    what = (f"phase 22: {cfg.name} {cfg.dtype}, {len(specs)} requests, "
+            f"{pool} pages")
+    if sched["decode_steps"] == 0:
+        raise AssertionError(f"{what}: no decode step")
+    n.expect(what, paged_attention=sched["decode_steps"] * cfg.n_layers)
+    if len(out["requests"]) != len(specs):
+        raise AssertionError(f"{what}: {len(out['requests'])} of "
+                             f"{len(specs)} requests submitted")
+    for r, s in zip(out["requests"], specs):
+        if (r.state is not RequestState.FINISHED
+                or len(r.out_tokens) != s.max_new_tokens):
+            raise AssertionError(f"{what}: request {r.rid} {r.state} with "
+                                 f"{len(r.out_tokens)} of "
+                                 f"{s.max_new_tokens} tokens")
+    t0 = time.monotonic()
+    want = cpu_schedule(cfg, specs, n_pages)
+    if sched != want:
+        raise AssertionError(f"{what}: schedule {sched} != the host's "
+                             f"{want}")
+    ms, m = out["step_ms"], out["metrics"]
+    print(f"{what}: {m['steps']} engine steps ({sched['steps']} drive "
+          f"steps) = {m['decode_steps']} decode + {m['prefill_chunks']} "
+          f"prefill chunks, {m['preemptions']} preemptions over "
+          f"{sum(p > 0 for p, _ in sched['requests'])} requests, "
+          f"{m['tokens_sampled']} tokens, all finished; schedule equal to a "
+          f"1-layer smoke engine's on the host (its run "
+          f"{time.monotonic() - t0:.2f} s); wall {out['wall_s']:.3f} s = "
+          f"{m['tokens_sampled'] / out['wall_s']:.2f} tokens/s; decode-step "
+          f"ms {summarize(ms['decode'])}, prefill-chunk ms "
+          f"{summarize(ms['prefill'])}; virtual TTFT ms p50/p99 "
+          f"{out['ttft_ms']['p50']:.1f}/{out['ttft_ms']['p99']:.1f}, ITL "
+          f"{out['itl_ms']['p50']:.1f}/{out['itl_ms']['p99']:.1f}; peak "
+          f"memory {out['peak'] / 2**30:.3f} GiB; paged launches "
+          f"{n.n['paged_attention']} = {m['decode_steps']} x {cfg.n_layers}; "
+          f"page leaks 0; {card_line()}", flush=True)
+    out["schedule"] = sched
+    return out
+
+
+def first_divergence(a: list, b: list) -> int | None:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def flip_gaps(pressured: list, plain: list) -> list:
+    """Each request whose float32 streams differ between the two runs: (rid,
+    position, temperature, the plain run's top-two gap there, the largest
+    logit difference at the positions before it).  The gap is that of the
+    scores the sampler takes the argmax of, in logits: at temperature T,
+    logits / T + the request's Gumbel noise for that token, times T."""
+    from repro_torch.models import paged_lm
+    from repro_torch.serve.engine import _key_data
+
+    flips = []
+    for a, b in zip(pressured, plain):
+        i = first_divergence(a.out_tokens, b.out_tokens)
+        if i is None:
+            continue
+        la, lb = np.stack(a.logits_log), np.stack(b.logits_log)
+        noise = float(np.abs(la[:i] - lb[:i]).max()) if i else 0.0
+        t = b.params.temperature
+        scores = torch.from_numpy(lb[i]).double()
+        if t > 0:
+            scores = scores / t + paged_lm._gumbel(
+                _key_data(b.params.seed, i), scores.numel(), "cuda"
+            ).double().cpu()
+        top = torch.topk(scores, 2).values
+        gap = float(top[0] - top[1]) * (t if t > 0 else 1.0)
+        flips.append((b.rid, i, t, gap, noise))
+    return flips
+
+
+def phase_traffic(cfg) -> dict:
+    """Phase 22: Poisson traffic through the engine at full width, the page
+    pool undersized (preemption, re-prefill, page reuse) and fully
+    provisioned; bfloat16 at full depth, then float32 on the first
+    ``TRAFFIC_F32_SPECS`` specs with the logits captured.  Returns the
+    paged launches."""
+    from repro_torch.launch import serve_traffic as st
+    from repro_torch.serve import ServeEngine
+
+    t0 = time.monotonic()
+    total: dict = {}
+    specs = st.workload(cfg, st.FULL)
+    n_pages = st.pressure_pages(st.FULL, 8)
+    print(f"phase 22: launch/serve_traffic.py's --full workload: "
+          f"{len(specs)} requests (seed 7, 500 virtual requests/s; prompts "
+          f"{min(len(s.prompt) for s in specs)}-"
+          f"{max(len(s.prompt) for s in specs)} tokens, outputs "
+          f"{min(s.max_new_tokens for s in specs)}-"
+          f"{max(s.max_new_tokens for s in specs)}; "
+          f"{sum(s.temperature > 0 for s in specs)} at temperature 0.8) on "
+          f"8 slots, max_len 512, pages of 16, chunks of 64; pools of "
+          f"{n_pages} pages (pressured) and 257 (all)", flush=True)
+    params = api_init(cfg)
+    warm = ServeEngine(cfg, params, slots=8, max_len=512, page_size=16,
+                       prefill_chunk=64, n_pages=n_pages)
+    warm.submit(list(range(1, 80)), max_new_tokens=4)
+    warm.run()
+    warm.assert_no_leaks()
+    del warm
+    bf16 = {pool: traffic_run(cfg, params, specs, pool, total)
+            for pool in (n_pages, None)}
+    del params
+    pressed, plain = bf16[n_pages], bf16[None]
+    if pressed["metrics"]["preemptions"] == 0:
+        raise AssertionError("phase 22: the pressured bfloat16 run did not "
+                             "preempt")
+    diverged = [(a.rid, first_divergence(a.out_tokens, b.out_tokens))
+                for a, b in zip(pressed["requests"], plain["requests"])
+                if a.out_tokens != b.out_tokens]
+    preempted = [r.rid for r in pressed["requests"] if r.preemptions]
+    extra = (pressed["metrics"]["prefill_chunks"]
+             - plain["metrics"]["prefill_chunks"])
+    print(f"phase 22: bfloat16 streams pressured vs all pages: "
+          f"{len(specs) - len(diverged)}/{len(specs)} equal (reported, no "
+          f"gate: a re-prefill writes the generated tokens' K/V through "
+          f"the 64-row prefill GEMMs, first written by 8-row decode steps); "
+          f"first divergence (request, token) {diverged}; preempted "
+          f"requests {preempted}; preemption cost {extra} extra prefill "
+          f"chunks and {pressed['wall_s'] - plain['wall_s']:.3f} s of wall",
+          flush=True)
+
+    f32_cfg = dataclasses.replace(cfg, dtype="float32")
+    f32_specs = specs[:TRAFFIC_F32_SPECS]
+    free_card()
+    params = api_init(f32_cfg)
+    # the full pool first here, the pressured one first in bf16: a pair's
+    # second run is slower in both orders or the pool sets the step time
+    f32 = {pool: traffic_run(f32_cfg, params, f32_specs, pool, total,
+                             capture=True) for pool in (None, n_pages)}
+    del params
+    free_card()
+    if f32[n_pages]["metrics"]["preemptions"] == 0:
+        raise AssertionError("phase 22: the pressured float32 run did not "
+                             "preempt")
+    reqs = [f32[pool]["requests"] for pool in (n_pages, None)]
+    noise = max((float(np.abs(np.stack(a.logits_log)
+                              - np.stack(b.logits_log)).max())
+                 for a, b in zip(*reqs) if a.out_tokens == b.out_tokens),
+                default=0.0)
+    flips = flip_gaps(*reqs)
+    for rid, i, t, gap, before in flips:
+        ok = gap < FLIP_FACTOR * before
+        print(f"phase 22: float32 request {rid} (temperature {t}) flips at "
+              f"token {i}: the unpressured top-two gap {gap:.3e} vs "
+              f"{FLIP_FACTOR:g} x the largest logit difference before it "
+              f"{before:.3e}: {'accepted' if ok else 'REFUSED'}", flush=True)
+        if not ok:
+            raise AssertionError(f"phase 22: float32 request {rid} flips at "
+                                 f"token {i} on a gap of {gap:.3e}")
+    f32_extra = (f32[n_pages]["metrics"]["prefill_chunks"]
+                 - f32[None]["metrics"]["prefill_chunks"])
+    print(f"phase 22: float32 streams pressured vs all pages, "
+          f"{len(f32_specs)} requests (greedy and sampled): "
+          f"{len(f32_specs) - len(flips)}/{len(f32_specs)} equal, "
+          f"{len(flips)} accepted flips; largest logit difference over the "
+          f"equal streams {noise:.3e}; preemption cost {f32_extra} extra "
+          f"prefill chunks", flush=True)
+    print(f"phase 22: Poisson traffic in {time.monotonic() - t0:.1f} s; "
+          f"launches {json.dumps(total)}; {card_line()}", flush=True)
+
+    return {"launches": total["paged_attention"]}
+
+
 def api_init(cfg):
     """Full-width random weights drawn on the card from seed 0."""
     from repro_torch.models import api
@@ -4026,7 +4254,7 @@ def main() -> int:
 
 
 def phases(sweep, workers: int, start: float) -> int:
-    """Phases 1-21 (the sweep's pool is already forked)."""
+    """Phases 1-22 (the sweep's pool is already forked)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
 
@@ -4143,15 +4371,16 @@ def phases(sweep, workers: int, start: float) -> int:
         p20 = archs["launches"]
         free_card()
         phase_sp_ranks(sp_started)
+    p22 = phase_traffic(cfg)["launches"]
 
     kernels = [{
         "name": "paged_attention", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": launches + sharded["paged"] + fam["paged_attention"]
-        + p20["paged_attention"],
+        + p20["paged_attention"] + p22,
         "launches_by_phase": {"4": launches, "17": sharded["paged"],
                               "18": fam["paged_attention"],
-                              "20": p20["paged_attention"]},
+                              "20": p20["paged_attention"], "22": p22},
         **kstats}]
     replaces = {"runahead_gather": f"{GATHER_REPLACES}:91",
                 "pipelined_gather": f"{GATHER_REPLACES}:117",
@@ -4223,7 +4452,7 @@ def phases(sweep, workers: int, start: float) -> int:
         "launches_by_phase": {"13": ssd_launches, "18": fam["ssd_scan"],
                               "19": p19["ssd_scan"]},
         **ssd, "custom_op_us": dry["overhead"]["ssd_scan"]})
-    print(f"phases 1-21 passed in {time.monotonic() - start:.1f} s",
+    print(f"phases 1-22 passed in {time.monotonic() - start:.1f} s",
           flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))
