@@ -259,7 +259,22 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     bfloat16's equal streams and first divergences are reported.  Printed:
     wall tokens/s, decode-step and prefill-chunk ms p50 / p99, the extra
     prefill chunks preemption cost, virtual TTFT and ITL p50 / p99, peak
-    memory.
+    memory;
+23. reproduce the paper's figures through ``repro_torch.figures`` (Figs.
+    2/5 and 11-18, full mode: the ten Table-1 kernels and the six
+    frontier kernels), run after phase 15 and before phase 16, whose
+    chaos sweep retires the pool (its workers forked before CUDA, the
+    script's first act): the whole union into a fresh temporary store,
+    every point computed and every Fig. 17 and Fig. 18 reconfiguration's
+    §3.4 profile on the card, the ``cache_grid_scan`` counter set to 0
+    just before and read just after equal to the non-empty streams of
+    those 16 reconfigurations; each reconfiguration's result (allocations,
+    lines, profit, configuration) equal to ``reconfig.reconfigure`` on
+    the CPU route on this machine; then again into the same store:
+    nothing computed, no launch, every row and summary the cold run's.
+    Printed: the headlines beside the paper's (Fig. 2's utilization, Fig. 12f's
+    storage ratio, Fig. 13's geomean and max, Fig. 17's four gains, Fig.
+    18's verdicts) and cold and warm wall seconds, points and points/s.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -2613,6 +2628,134 @@ def phase_sweep(sw, workers: int, reconf: dict) -> dict:
     return out
 
 
+def figure_headlines(summary: dict) -> str:
+    """Phase 23's headlines beside the paper's."""
+    fig12, fig13 = summary["fig12"], summary["fig13"]
+    ratio = (f"{fig12['storage_ratio']:.2%}" if "storage_ratio" in fig12
+             else "no match")
+    gains = "; ".join(f"{k} {100 * v:+.2f} (paper {FIG17_PAPER[k]:+.2f})"
+                      for k, v in summary["fig17"].items())
+    verdicts = {k: v["verdict"] for k, v in summary["fig18"].items()}
+    return (f"Fig. 2 average utilization "
+            f"{summary['motivation']['avg_utilization']:.3%} (paper "
+            f"1.43-1.7%); Fig. 12f storage ratio {ratio} (paper 1.27%); "
+            f"Fig. 13 geomean {fig13['geomean']:.2f}x, max "
+            f"{fig13['max']:.2f}x (paper 3.04x / 6.91x); Fig. 17 gains, % "
+            f"{gains}; Fig. 18 verdicts {json.dumps(verdicts)}")
+
+
+def phase_figures() -> dict:
+    """The paper's figures through ``repro_torch.figures.run`` in full
+    mode on the sweep's already-forked pool, their §3.4 profiles on the
+    card: cold into a fresh store (every point computed, one
+    ``cache_grid_scan`` launch per non-empty stream of the 16
+    reconfigurations, each result the CPU route's), then warm (nothing
+    computed, no launch, the same rows and summaries)."""
+    from repro_torch.core.cgra import cache_grid, presets, reconfig
+    from repro_torch.core.cgra import sweep as sw
+    from repro_torch.figures import common, fig17_reconfig, fig18_frontier
+    from repro_torch.figures import run as figures
+
+    if sw._executor is None and len(os.sched_getaffinity(0)) > 1:
+        raise AssertionError("phase 23: the sweep's pool is gone; it must "
+                             "run before phase 16's chaos sweep")
+    window = fig17_reconfig.WINDOW
+    names = fig17_reconfig.kernels(False) + fig18_frontier.kernels(False)
+    t0 = time.monotonic()
+    expect = sum(a.size > 0 for n in names for a, _ in reconfig.sample_streams(
+        common.trace(n), presets.RECONFIG, window))
+    print(f"phase 23: figures in full mode: {len(names)} reconfigured "
+          f"kernels (Figs. 17 and 18), {expect} non-empty streams at window "
+          f"{window}; traces built on the host in "
+          f"{time.monotonic() - t0:.2f} s", flush=True)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_figures_") as tmp:
+        out_dir = Path(tmp)
+        store = sw.SimCache(out_dir / "store")
+        for which in ("cold", "warm"):
+            common.reset(store)
+            torch.cuda.synchronize()
+            cache_grid.cache_grid_scan.launches = 0
+            t0 = time.perf_counter()
+            with open(out_dir / f"figures_{which}.csv", "w") as f, \
+                    contextlib.redirect_stdout(f):
+                summary = figures.run(quick=False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rep = dict(common.SWEEP_REPORT)
+            computed = rep["batched"] + rep["runahead"] + rep["scalar"]
+            rows = (out_dir / f"figures_{which}.csv").read_text()
+            runs[which] = dict(
+                summary=summary, rows=rows.splitlines(), wall_s=wall,
+                points=rep["points"], computed=computed,
+                launches=cache_grid.cache_grid_scan.launches,
+                failures=list(common.SWEEP_FAILURES), report=rep)
+        cold, warm = runs["cold"], runs["warm"]
+        for which, r in runs.items():
+            if r["failures"]:
+                raise AssertionError(f"phase 23 {which}: quarantined "
+                                     f"points {r['failures']}")
+        if cold["computed"] != cold["points"] or cold["report"]["cached"]:
+            raise AssertionError(f"phase 23 cold: {cold['computed']} of "
+                                 f"{cold['points']} points computed, "
+                                 f"{cold['report']['cached']} cached in a "
+                                 f"fresh store")
+        if cold["launches"] != expect:
+            raise AssertionError(f"phase 23 cold: {cold['launches']} "
+                                 f"cache_grid_scan launches, want one per "
+                                 f"non-empty stream of the {len(names)} "
+                                 f"reconfigurations ({expect})")
+        if warm["computed"] or warm["launches"]:
+            raise AssertionError(f"phase 23 warm: {warm['computed']} points "
+                                 f"computed, {warm['launches']} launches")
+        if warm["points"] != cold["points"] or warm["rows"] != cold["rows"]:
+            raise AssertionError("phase 23 warm: the rows differ from the "
+                                 "cold run's")
+        strip = ("sweep_seconds",)
+        if ({k: v for k, v in warm["summary"].items() if k not in strip}
+                != {k: v for k, v in cold["summary"].items()
+                    if k not in strip}):
+            raise AssertionError("phase 23 warm: the summaries differ from "
+                                 "the cold run's")
+
+        # the card's results, read back from the store, against the CPU
+        # route on this machine (``reconfigure`` itself: the store's key
+        # leaves the device out)
+        cache_grid.cache_grid_scan.launches = 0
+        t0 = time.perf_counter()
+        for name in names:
+            card = sw.reconfigure_cached(name, presets.RECONFIG,
+                                         window=window, store=store)
+            host = reconfig.reconfigure(common.trace(name), presets.RECONFIG,
+                                        window=window, device="cpu")
+            if (card.allocations, card.lines, card.profit, card.config) != (
+                    host.allocations, host.lines, host.profit, host.config):
+                raise AssertionError(
+                    f"phase 23: {name} on the card {card.allocations} "
+                    f"{card.lines} {card.profit}, CPU route "
+                    f"{host.allocations} {host.lines} {host.profit}")
+        host_s = time.perf_counter() - t0
+        if cache_grid.cache_grid_scan.launches:
+            raise AssertionError("phase 23: a store read launched the "
+                                 "profiler")
+    print(f"phase 23: cold {cold['wall_s']:.3f} s, {cold['points']} points "
+          f"computed ({cold['points'] / cold['wall_s']:.2f} points/s, "
+          f"sweep {cold['report']['seconds']:.3f} s, engines batched "
+          f"{cold['report']['batched']} runahead "
+          f"{cold['report']['runahead']}), {cold['launches']} "
+          f"cache_grid_scan launches = the non-empty streams; warm "
+          f"{warm['wall_s']:.3f} s, {warm['points']} points read "
+          f"({warm['points'] / warm['wall_s']:.2f} points/s), 0 computed, 0 "
+          f"launches, {len(warm['rows'])} rows identical; the {len(names)} "
+          f"reconfigurations equal to the CPU route's ({host_s:.2f} s on "
+          f"the host); {card_line()}", flush=True)
+    print(f"phase 23: {figure_headlines(cold['summary'])}", flush=True)
+    return {"launches": cold["launches"], "cold_s": round(cold["wall_s"], 4),
+            "warm_s": round(warm["wall_s"], 4), "points": cold["points"],
+            "rows": len(cold["rows"]), "reconfigurations": len(names),
+            "streams": expect}
+
+
 def host_leaves(state: dict) -> list:
     """Every leaf of a (DTensor) state, whole, copied to the host."""
     from repro_torch import sharding
@@ -2884,7 +3027,19 @@ def family_train(cfg, shape, rules, sharded: bool, total: dict) -> dict:
     final state (computed on the card, then the state is freed)."""
     from repro_torch.data.pipeline import synthetic_batch
     from repro_torch.launch import steps, train_lm
+    from repro_torch.optim import adamw
     from repro_torch.runtime.elastic import reshard_state
+
+    # the placements the grads reach AdamW with, against their leaves'
+    grads: dict[str, int] = {}
+    slices = adamw._slices
+
+    def seen(p, g, m, v):
+        if hasattr(p, "placements"):
+            key = ("as the leaf" if g.placements == p.placements else
+                   f"{list(g.placements)} for {list(p.placements)}")
+            grads[key] = grads.get(key, 0) + 1
+        return slices(p, g, m, v)
 
     opt = steps.make_optimizer(cfg)
     state = train_lm.init_state(cfg, opt, "cuda", seed=0)
@@ -2899,15 +3054,19 @@ def family_train(cfg, shape, rules, sharded: bool, total: dict) -> dict:
     losses, ms = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with Launches(total if sharded else {}) as n:
-        for i in range(SHARDED_STEPS):
-            batch = synthetic_batch(cfg, shape, seed=0, step=i)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            losses.append(metrics["loss"].item())
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t0) * 1e3)
+    adamw._slices = seen
+    try:
+        with Launches(total if sharded else {}) as n:
+            for i in range(SHARDED_STEPS):
+                batch = synthetic_batch(cfg, shape, seed=0, step=i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                losses.append(metrics["loss"].item())
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        adamw._slices = slices
     peak = torch.cuda.max_memory_allocated()
     weights = digest_weights()
     digests = [leaf_digest(t, weights) for t in state_leaves(state)]
@@ -2917,7 +3076,7 @@ def family_train(cfg, shape, rules, sharded: bool, total: dict) -> dict:
     free_card()
     return {"losses": losses, "ms": ms, "launches": n.n, "routes": n.routes,
             "peak": peak, "digests": digests, "params": n_params,
-            "moments": moments}
+            "moments": moments, "grads": grads}
 
 
 def train_gates(cfg, shape, mesh: dict, plain: dict, **want) -> str:
@@ -2944,6 +3103,8 @@ def train_gates(cfg, shape, mesh: dict, plain: dict, **want) -> str:
             f"{[round(x, 1) for x in mesh['ms']]} vs plain "
             f"{[round(x, 1) for x in plain['ms']]}; peak memory "
             f"{mesh['peak'] / 2**30:.3f} vs {plain['peak'] / 2**30:.3f} GiB; "
+            f"DTensor grads reaching AdamW (leaves x steps) "
+            f"{json.dumps(mesh['grads'])}; "
             f"launches {json.dumps(mesh['launches'])} = {SHARDED_STEPS} "
             f"steps x {cfg.n_layers} layers x 2 (forward and recompute) per "
             f"kernel's layer; {card_line()}")
@@ -4254,7 +4415,7 @@ def main() -> int:
 
 
 def phases(sweep, workers: int, start: float) -> int:
-    """Phases 1-22 (the sweep's pool is already forked)."""
+    """Phases 1-23 (the sweep's pool is already forked)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
 
@@ -4352,6 +4513,8 @@ def phases(sweep, workers: int, start: float) -> int:
     reconf = phase_reconfig(flush)
     alloc = phase_allocator(flush)
     del flush
+    # phase 23 needs the pool that phase 16's chaos sweep retires
+    figs = phase_figures()
     swept = phase_sweep(sweep, workers, reconf)
     torch.cuda.empty_cache()
     with subprocesses() as started:
@@ -4416,8 +4579,10 @@ def phases(sweep, workers: int, start: float) -> int:
             entry["launches"] += n15
             if name == "cache_grid_scan":
                 entry["launches_by_phase"]["16"] = swept["cold_launches"]
-                entry["launches"] += swept["cold_launches"]
+                entry["launches_by_phase"]["23"] = figs["launches"]
+                entry["launches"] += swept["cold_launches"] + figs["launches"]
                 entry["sweep_service"] = swept
+                entry["figures"] = figs
             entry["max_abs_err"] = max(entry["max_abs_err"], err15)
             entry[key] = extra
         kernels.append(entry)
@@ -4452,7 +4617,7 @@ def phases(sweep, workers: int, start: float) -> int:
         "launches_by_phase": {"13": ssd_launches, "18": fam["ssd_scan"],
                               "19": p19["ssd_scan"]},
         **ssd, "custom_op_us": dry["overhead"]["ssd_scan"]})
-    print(f"phases 1-22 passed in {time.monotonic() - start:.1f} s",
+    print(f"phases 1-23 passed in {time.monotonic() - start:.1f} s",
           flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,10 @@ cooperative sweep.
 
 The twin of ``scripts/sweep_service.py`` over the port's sweep
 (:mod:`repro_torch.core.cgra.sweep`), with the same command line and
-report.  Its ``demo`` grid is the reference's; the ``quick`` grid is the
-benchmark's (``benchmarks.run.sweep_points``), which the port does
-not have yet, so it is refused.
+report.  Its ``demo`` grid is the reference's; its ``quick`` grid is the
+union of the paper's figures in quick mode,
+``repro_torch.figures.run.sweep_points(quick=True)``, as the reference's
+is ``benchmarks.run.sweep_points``.
 
 Each invocation is one **worker** of the elastic sweep service: it joins a
 shared simcache root, claims points through digest-keyed TTL leases
@@ -62,19 +63,16 @@ def grid_points(name: str):
     if name == "demo":
         return demo_points()
     if name == "quick":
-        raise SystemExit("grid 'quick' is the benchmark's "
-                         "(benchmarks.run.sweep_points), which the port has "
-                         "not ported yet; use --grid demo")
-    raise SystemExit(f"unknown grid {name!r}; want demo")
+        from repro_torch.figures.run import sweep_points
+        return sweep_points(quick=True)
+    raise SystemExit(f"unknown grid {name!r}; want demo|quick")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--store", required=True,
                     help="shared simcache root (the coordination substrate)")
-    ap.add_argument("--grid", default="demo",
-                    help="point grid: demo (quick, the benchmark's, is "
-                    "not ported)")
+    ap.add_argument("--grid", default="demo", help="demo|quick point grid")
     ap.add_argument("--worker-id", default=None,
                     help="stable lease-owner id (default host:pid:rand)")
     ap.add_argument("--ttl", type=float, default=None,

@@ -11,8 +11,9 @@ float32 intermediate of that arithmetic whole, where the reference's jit
 fuses them: about six copies of the leaf in float32 (~25 GB for a 1.05 B
 element embedding, more than internvl2's training had left on one card).
 So a leaf larger than :data:`UPDATE_CHUNK` elements is updated a slice of
-its elements at a time; each element's arithmetic is unchanged, so the
-result is the same bit for bit.
+its elements at a time (a DTensor leaf a slice of its local shard at a
+time); each element's arithmetic is unchanged, so the result is the same
+bit for bit.
 """
 from __future__ import annotations
 
@@ -92,6 +93,10 @@ def apply_updates(state: dict, grads: Grads, cfg: AdamWConfig,
     bc1 = 1.0 - torch.pow(b1, sf)
     bc2 = 1.0 - torch.pow(b2, sf)
     mdt = getattr(torch, cfg.moment_dtype)
+    # global scalars (replicated DTensors on a mesh) as plain tensors: the
+    # DTensor leaves below are updated in their local shards
+    scale, lr, bc1, bc2 = (x.full_tensor() if isinstance(x, DTensor) else x
+                           for x in (scale, lr, bc1, bc2))
     for name, p in state["params"].named_parameters():
         for pp, g, m, v in _slices(p, grads[name], state["m"][name],
                                    state["v"][name]):
@@ -110,10 +115,20 @@ def apply_updates(state: dict, grads: Grads, cfg: AdamWConfig,
 def _slices(p, g, m, v):
     """(p, g, m, v) as flat slices of at most :data:`UPDATE_CHUNK`
     elements (views of p, m and v, which the update writes through).  A
-    DTensor leaf stays whole: its shards are what each rank updates."""
+    DTensor leaf is sliced in its local shards: the update is elementwise,
+    so each rank's shard of p, m and v takes the same arithmetic as the
+    whole DTensor would give it, once g has p's placements (a grad that
+    arrives with others, e.g. ``Partial``, is redistributed to them
+    first)."""
     chunk = UPDATE_CHUNK
     if isinstance(p, DTensor):
-        return [(p, g, m, v)]
+        if g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        for t in (m, v):
+            if t.placements != p.placements:
+                raise ValueError(f"AdamW moment placements {t.placements} "
+                                 f"differ from the leaf's {p.placements}")
+        p, g, m, v = (t.to_local() for t in (p, g, m, v))
     flat = [p.view(-1), g.reshape(-1), m.view(-1), v.view(-1)]
     return [tuple(t[i:i + chunk] for t in flat)
             for i in range(0, p.numel(), chunk)]

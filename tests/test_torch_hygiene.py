@@ -35,7 +35,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
     (ROOT / "examples").glob("*_torch.py")) + sorted(
     (ROOT / "scripts").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -279,6 +279,83 @@ def test_update_in_slices_is_bit_identical(monkeypatch, moments):
             np.testing.assert_allclose(g, w, **tol)
 
 
+@pytest.fixture(scope="module")
+def one_rank_mesh(tmp_path_factory):
+    """A (1, 1) ``data x model`` mesh over a one-rank gloo group."""
+    import datetime
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    store = dist.FileStore(str(tmp_path_factory.mktemp("pg") / "store"), 1)
+    dist.init_process_group("gloo", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        yield make_host_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("moments", ["float32", "bfloat16"])
+def test_dtensor_leaves_update_in_slices_bit_identical(monkeypatch,
+                                                       one_rank_mesh,
+                                                       moments):
+    """A DTensor leaf is updated a slice of its local shard at a time:
+    with ``UPDATE_CHUNK`` small, two steps on placed leaves (one sharded,
+    one replicated, the step a replicated scalar, one grad arriving
+    ``Partial``) give the whole plain update's params, m and v bit for
+    bit."""
+    from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                          Shard, distribute_tensor)
+
+    mesh = one_rank_mesh
+    gen = torch.Generator().manual_seed(4)
+    module = torch.nn.Module()
+    module.w = torch.nn.Parameter(torch.randn(48, 40, generator=gen))
+    module.b = torch.nn.Parameter(torch.randn(40, generator=gen))
+    grads = {n: torch.randn(p.shape, generator=gen) * 1e-2
+             for n, p in module.named_parameters()}
+    placements = {"w": [Shard(0), Replicate()],
+                  "b": [Replicate(), Replicate()]}
+    opt = adamw.AdamWConfig(lr=1e-2, moment_dtype=moments)
+
+    def placed(state):
+        for n, p in list(state["params"].named_parameters()):
+            setattr(state["params"], n, torch.nn.Parameter(
+                distribute_tensor(p.detach(), mesh, placements[n])))
+            for k in ("m", "v"):
+                state[k][n] = distribute_tensor(state[k][n], mesh,
+                                                placements[n])
+        state["step"] = distribute_tensor(state["step"], mesh,
+                                          [Replicate(), Replicate()])
+        return state
+
+    def dgrads():
+        out = {n: distribute_tensor(g, mesh, placements[n])
+               for n, g in grads.items()}
+        out["w"] = DTensor.from_local(grads["w"], mesh,
+                                      [Partial(), Replicate()])
+        return out
+
+    whole = adamw.init_state(copy.deepcopy(module), opt)
+    monkeypatch.setattr(adamw, "UPDATE_CHUNK", 7 * 40 + 3)
+    sliced = placed(adamw.init_state(copy.deepcopy(module), opt))
+    calls = []
+    real = adamw._slices
+    monkeypatch.setattr(adamw, "_slices",
+                        lambda *a: calls.append(len(out := real(*a))) or out)
+    for _ in range(2):
+        sliced = adamw.apply_updates(sliced, dgrads(), opt)
+        monkeypatch.setattr(adamw, "UPDATE_CHUNK", 2**26)
+        whole = adamw.apply_updates(whole, dict(grads), opt)
+        monkeypatch.setattr(adamw, "UPDATE_CHUNK", 7 * 40 + 3)
+    assert calls[:2] == [7, 1]               # 1,920 elements of w: 7 slices
+    assert all(isinstance(t, DTensor) for t in _leaves(sliced))
+    for a, b in zip(_leaves(sliced), _leaves(whole)):
+        a = a.full_tensor()
+        assert a.dtype == b.dtype and torch.equal(_bits(a), _bits(b))
+
+
 def test_error_feedback_matches_the_reference_on_equal_grads():
     """One int8 scale per reference leaf (all layers of a pattern position
     share it); quantization and residuals equal the reference's."""
