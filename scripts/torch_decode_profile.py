@@ -8,8 +8,10 @@ Serves full-width qwen2-1.5b (random bfloat16 weights from seed 0) through
 and once every slot decodes, traces 10 decode steps with ``torch.profiler``.
 Prints the device time by kernel name, the kernel launches and device time
 per step, the device's busy share of the traced window (kernel time summed
-over the window's wall time, one stream) and the host's wall time per step,
-which the profiler itself inflates.  Imports nothing of JAX.
+over the window's wall time, one stream), the host's wall time per step,
+which the profiler itself inflates, and the host ms per step of each of
+the engine's spans (``serve.step`` and its children).  Imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 STEPS = 10
+SPANS = ("serve.step", "serve.schedule", "serve.sync_cache", "serve.decode",
+         "serve.readback", "serve.accept", "serve.account")
 
 
 def device_us(evt) -> float:
@@ -73,9 +77,14 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append((time.monotonic() - s0) * 1e3)
         window_ms = (time.monotonic() - t0) * 1e3
-    events = [e for e in prof.key_averages()        # kernels, not aten ops
+    averages = prof.key_averages()
+    host_ms = {e.key: e.cpu_time_total / 1e3 / STEPS for e in averages
+               if e.key in SPANS and e.device_type
+               == torch.autograd.DeviceType.CPU}
+    events = [e for e in averages                   # kernels, not aten ops
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and device_us(e) > 0]
+              and device_us(e) > 0
+              and not e.key.startswith("serve.")]   # nor the engine's spans
     events.sort(key=device_us, reverse=True)
     total_ms = sum(device_us(e) for e in events) / 1e3
     print(card_line())
@@ -86,6 +95,8 @@ def main() -> int:
           f"profiler slows the host; the device time is what to read)")
     print(f"per step: {sum(e.count for e in events) / STEPS:.1f} kernel "
           f"launches, {total_ms / STEPS:.3f} ms of device time")
+    print("engine spans, host ms per profiled step: " + ", ".join(
+        f"{name} {host_ms.get(name, 0.0):.3f}" for name in SPANS))
     print(f"{'device ms/step':>14} {'share':>6} {'calls/step':>10}  kernel")
     for e in events[:15]:
         ms = device_us(e) / 1e3

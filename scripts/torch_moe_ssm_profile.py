@@ -65,7 +65,8 @@ def traced(what: str, n: int, fn) -> None:
         window_ms = (time.monotonic() - t0) * 1e3
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and device_us(e) > 0]
+              and device_us(e) > 0
+              and not e.key.startswith("serve.")]   # the engine's spans
     events.sort(key=device_us, reverse=True)
     total_ms = sum(device_us(e) for e in events) / 1e3
     print(f"{what}: {n} traced; wall ms each mean {np.mean(walls):.3f} "

@@ -57,6 +57,7 @@ from .metrics import EngineMetrics, RequestMetrics
 from .paging import PagePool
 from .scheduler import (Request, RequestState, SamplingParams, Scheduler,
                         TERMINAL)
+from .spans import span
 
 
 class Backpressure(RuntimeError):
@@ -229,38 +230,52 @@ class ServeEngine:
         self._retire(req, RequestState.CANCELLED, self.clock(), reason)
 
     # -- the two step kinds --------------------------------------------------
-    def _run_prefill(self, req: Request, now: float) -> None:
+    def _plan_prefill(self, req: Request, now: float) -> Optional[tuple]:
+        """Pages and inputs of the request's next chunk: ``_run_prefill``'s
+        arguments, or None when it preempted itself under extreme pressure."""
         toks = req.prefill_tokens
         n_valid = min(self.prefill_chunk, len(toks) - req.cache_len)
         self.sched.ensure_pages(req, req.cache_len + n_valid)
         if req.state is not RequestState.PREFILL:
-            return                     # preempted itself under extreme pressure
+            return None
         chunk = np.zeros((self.prefill_chunk,), np.int32)
         chunk[:n_valid] = toks[req.cache_len:req.cache_len + n_valid]
         req.metrics.on_admit(now)
-        self._sync_cache()
-        token, logits, self.cache = self.steps.prefill(
-            self.params, chunk, np.int32(n_valid), np.int32(req.slot),
-            np.float32(req.params.temperature),
-            _key_data(req.params.seed, len(req.out_tokens)), self.cache)
-        req.cache_len += n_valid
-        if req.cache_len >= len(toks):             # final chunk
-            req.state = RequestState.DECODE
-            if req.out_tokens:
-                # resumed after preemption: the re-prefill's sample is
-                # discarded — the pre-preemption pending token carries on
-                req.pending_token = req.out_tokens[-1]
-            else:
-                self._accept_token(req, int(token), logits, self.clock())
+        final = req.cache_len + n_valid >= len(toks)
+        return (req, chunk, n_valid, final,
+                _key_data(req.params.seed, len(req.out_tokens)))
 
-    def _run_decode(self, now: float) -> None:
+    def _run_prefill(self, req: Request, chunk: np.ndarray, n_valid: int,
+                     final: bool, key_data: np.ndarray) -> None:
+        with span("serve.prefill"):
+            token, logits, self.cache = self.steps.prefill(
+                self.params, chunk, np.int32(n_valid), np.int32(req.slot),
+                np.float32(req.params.temperature), key_data, self.cache)
+        # a resumed request's re-prefill sample is discarded: the
+        # pre-preemption pending token carries on
+        fresh = final and not req.out_tokens
+        with span("serve.readback"):
+            if fresh:
+                token = int(token)
+        with span("serve.accept"):
+            req.cache_len += n_valid
+            if final:
+                req.state = RequestState.DECODE
+                if fresh:
+                    self._accept_token(req, token, logits, self.clock())
+                else:
+                    req.pending_token = req.out_tokens[-1]
+
+    def _plan_decode(self) -> Optional[tuple]:
+        """Pages and inputs of the next decode step: ``_run_decode``'s
+        arguments, or None when no slot is left decoding."""
         for r in list(self.sched.live()):
             if r.state is RequestState.DECODE:
                 self.sched.ensure_pages(r, r.cache_len + 1)
         batch = [r for r in self.sched.live()
                  if r.state is RequestState.DECODE]
         if not batch:
-            return
+            return None
         tokens = np.zeros((self.n_slots,), np.int32)
         active = np.zeros((self.n_slots,), bool)
         temps = np.zeros((self.n_slots,), np.float32)
@@ -270,46 +285,70 @@ class ServeEngine:
             active[r.slot] = True
             temps[r.slot] = r.params.temperature
             key_data[r.slot] = _key_data(r.params.seed, len(r.out_tokens))
-        self._sync_cache()
-        next_tokens, logits, self.cache = self.steps.decode(
-            self.params, tokens, active, temps, key_data, self.cache)
-        next_tokens = next_tokens.cpu().numpy()
-        if logits is not None:
-            logits = logits.cpu()
-        done = self.clock()
-        for r in batch:
-            r.cache_len += 1
-            self._accept_token(
-                r, int(next_tokens[r.slot]),
-                None if logits is None else logits[r.slot], done)
+        return batch, tokens, active, temps, key_data
+
+    def _run_decode(self, batch: list, tokens: np.ndarray, active: np.ndarray,
+                    temps: np.ndarray, key_data: np.ndarray) -> None:
+        with span("serve.decode"):
+            next_tokens, logits, self.cache = self.steps.decode(
+                self.params, tokens, active, temps, key_data, self.cache)
+        with span("serve.readback"):
+            next_tokens = next_tokens.cpu().numpy()
+            if logits is not None:
+                logits = logits.cpu()
+        with span("serve.accept"):
+            done = self.clock()
+            for r in batch:
+                r.cache_len += 1
+                self._accept_token(
+                    r, int(next_tokens[r.slot]),
+                    None if logits is None else logits[r.slot], done)
 
     # -- main loop -----------------------------------------------------------
     def step(self) -> bool:
-        """Run one engine step; returns False when there was nothing to do."""
-        now = self.clock()
-        self._scan_timeouts(now)
-        self.sched.admit()
-        action = self.sched.next_action()
-        if action.kind == "idle":
-            return False
-        t0 = time.monotonic()
-        if action.kind == "prefill":
-            self._run_prefill(action.request, now)
-        else:
-            self._run_decode(now)
-        dt = time.monotonic() - t0
-        if self.chaos is not None:
-            fault = self.chaos.fire("serve.step", str(self.metrics.steps))
-            if fault is not None and fault.kind == "delay":
-                dt += fault.seconds       # stretch the measured step time
-        if self.watchdog.record(self.metrics.steps, dt):
-            self.metrics.stragglers += 1
-        self.metrics.preemptions = self.sched.n_preemptions
-        self.metrics.on_step(action.kind,
-                             self.sched.occupancy() / self.n_slots,
-                             self.pool.utilization())
-        self.pool.check()
-        return True
+        """Run one engine step; returns False when there was nothing to do.
+
+        While a torch profiler collects, the step is the span
+        ``serve.step``, tiled in order by ``serve.schedule`` (timeouts,
+        admission, the step's pages and inputs), ``serve.sync_cache``,
+        ``serve.decode`` or ``serve.prefill`` (issuing the device work),
+        ``serve.readback`` (the host's read of the sampled token),
+        ``serve.accept`` (streams and retirement) and ``serve.account``
+        (chaos, the watchdog, metrics and the pool's check)."""
+        with span("serve.step"):
+            with span("serve.schedule"):
+                now = self.clock()
+                self._scan_timeouts(now)
+                self.sched.admit()
+                action = self.sched.next_action()
+                if action.kind == "idle":
+                    return False
+                t0 = time.monotonic()
+                if action.kind == "prefill":
+                    plan = self._plan_prefill(action.request, now)
+                    run = self._run_prefill
+                else:
+                    plan = self._plan_decode()
+                    run = self._run_decode
+            if plan is not None:
+                with span("serve.sync_cache"):
+                    self._sync_cache()
+                run(*plan)
+            dt = time.monotonic() - t0
+            with span("serve.account"):
+                if self.chaos is not None:
+                    fault = self.chaos.fire("serve.step",
+                                            str(self.metrics.steps))
+                    if fault is not None and fault.kind == "delay":
+                        dt += fault.seconds   # stretch the measured step time
+                if self.watchdog.record(self.metrics.steps, dt):
+                    self.metrics.stragglers += 1
+                self.metrics.preemptions = self.sched.n_preemptions
+                self.metrics.on_step(action.kind,
+                                     self.sched.occupancy() / self.n_slots,
+                                     self.pool.utilization())
+                self.pool.check()
+            return True
 
     def run(self, max_steps: Optional[int] = None) -> list[Request]:
         """Step until all submitted work is terminal; returns finished
