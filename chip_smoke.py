@@ -274,7 +274,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
     nothing computed, no launch, every row and summary the cold run's.
     Printed: the headlines beside the paper's (Fig. 2's utilization, Fig. 12f's
     storage ratio, Fig. 13's geomean and max, Fig. 17's four gains, Fig.
-    18's verdicts) and cold and warm wall seconds, points and points/s.
+    18's verdicts) and cold and warm wall seconds, points and points/s;
+24. run phase 4's 12 prompts, greedy, 32 new tokens each, through the
+    ``ServeEngine`` as it runs on the card, each step kind's model half
+    replayed as a CUDA graph from its second call on, and through one
+    whose steps call ``api.serve_decode`` / ``api.serve_prefill``
+    directly, at full-width qwen2-1.5b (after phase 5) and dbrx-132b at
+    phase 11's 8 layers (after phase 11), every kernel counter set to 0
+    just before each run and read just after: equal streams, equal
+    launches (paged = decode steps x layers; dispatch = combine = MoE
+    layers x (decode steps + prefill chunks)), every step after the
+    first of its kind a replay (``graphed_decode_steps``,
+    ``graphed_prefill_chunks``); then one request through each under
+    ``torch.profiler``: the paged read's (and dbrx's dispatch and
+    combine) kernels traced under their names in the replays, launched by
+    ``cudaGraphLaunch``, and as many kernels a decode step as the direct
+    calls launch, within 5%.  Printed: the untraced decode-step and
+    prefill-chunk ms of each, median and mean.
 
 The second-to-last line is a JSON object describing each kernel, the last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -638,6 +654,189 @@ def phase_serve(cfg, params, phase: str = "4") -> dict:
           f"x {cfg.n_layers} layers; page leaks 0; engine "
           f"{json.dumps(eng.metrics.summary())}; {card_line()}", flush=True)
     return launches
+
+
+def eager_steps(eng) -> None:
+    """Swap a card engine's graphed steps for direct calls of the step
+    functions, ``api.serve_decode`` / ``api.serve_prefill``: the engine as
+    it ran before its steps replayed CUDA graphs."""
+    from repro_torch.models import api
+
+    cfg, logits = eng.cfg, eng.capture_logits
+
+    def decode(params, tokens, active, temps, key_data, cache):
+        return api.serve_decode(params, tokens, active, temps, key_data,
+                                cache, cfg, attn_read="kernel",
+                                return_logits=logits)
+
+    def prefill(params, tokens, n_valid, slot, temp, key_data, cache):
+        return api.serve_prefill(params, tokens, n_valid, slot, temp,
+                                 key_data, cache, cfg, return_logits=logits)
+
+    eng.steps = dataclasses.replace(eng.steps, decode=decode,
+                                    prefill=prefill, graphs=None)
+
+
+def timed_steps(eng, prompts, new_tokens: int, annotate=None) -> dict:
+    """Serve ``prompts`` greedily through ``eng``, each engine step timed
+    to its end on the card (inside ``annotate(i)``, a context, when
+    given): the streams and the step ms by kind."""
+    reqs = [eng.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    step_ms = {"decode": [], "prefill": []}
+    kinds = []
+    while eng.sched.has_work():
+        before = eng.metrics.decode_steps
+        with (annotate(len(kinds)) if annotate else contextlib.nullcontext()):
+            s0 = time.monotonic()
+            if not eng.step():
+                break
+            torch.cuda.synchronize()
+            ms = (time.monotonic() - s0) * 1e3
+        kinds.append("decode" if eng.metrics.decode_steps > before
+                     else "prefill")
+        step_ms[kinds[-1]].append(ms)
+    eng.assert_no_leaks()
+    return {"tokens": [list(r.out_tokens) for r in reqs], "ms": step_ms,
+            "kinds": kinds}
+
+
+GRAPH_KERNELS = ("paged_partition_kernel", "paged_merge_kernel")
+GRAPH_MOE_KERNELS = ("dispatch_kernel", "combine_kernel")
+
+
+def traced_step_kernels(eng, prompt) -> dict:
+    """One greedy request (8 new tokens) through ``eng`` under
+    ``torch.profiler``, each engine step annotated: by step kind, the
+    kernels per step (each belongs to the step whose annotation holds the
+    host call that launched it) and the host calls that launched them, and
+    the device seconds by kernel name."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = timed_steps(eng, [prompt], 8,
+                          lambda i: record_function(f"phase24.step.{i}"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                    int(e["name"].rsplit(".", 1)[1])) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and e["name"].startswith("phase24.step."))
+    launch = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and corr is not None:
+            launch[corr] = (float(e["ts"]), e["name"])
+    per_step = [0] * len(run["kinds"])
+    callers = {"decode": set(), "prefill": set()}
+    names = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        names[e["name"]] = names.get(e["name"], 0.0) + float(e["dur"]) / 1e6
+        ts, api_call = launch.get((e.get("args") or {}).get("correlation"),
+                                  (None, None))
+        for t0, t1, i in spans:
+            if ts is not None and t0 <= ts <= t1:
+                per_step[i] += 1
+                callers[run["kinds"][i]].add(api_call)
+    by_kind = {k: [n for n, kind in zip(per_step, run["kinds"]) if kind == k]
+               for k in ("decode", "prefill")}
+    return {"per_step": by_kind, "callers": callers, "kernel_s": names,
+            "tokens": run["tokens"]}
+
+
+def phase_graphs(cfg, params) -> dict:
+    """Phase 4's 12 prompts, greedy, 32 new tokens each, through the
+    engine as it runs on the card (each step kind's model half replayed
+    as a CUDA graph from its second call on) and through one whose steps
+    call the step functions directly, each step timed to its end and every
+    kernel counter set to 0 just before each run and read just after:
+    equal streams, equal launches (paged = decode steps x layers, dispatch
+    = combine = MoE layers x (decode steps + prefill chunks)), every step
+    after the first of its kind a replay.  Then one request under
+    ``torch.profiler`` through each: the replayed kernels still traced
+    under their names, launched by ``cudaGraphLaunch``, as many a decode
+    step as the direct calls launch (within 5%)."""
+    from repro_torch.serve import ServeEngine
+
+    engine_kw = dict(slots=8, max_len=512, page_size=16, prefill_chunk=64,
+                     attn_read="kernel")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in rng.integers(32, 385, size=12)]
+    n_moe = sum(spec.ffn == "moe" for spec in cfg.pattern()) * cfg.n_groups
+    runs, traces = {}, {}
+    for name in ("graphed", "eager"):
+        eng = ServeEngine(cfg, params, **engine_kw)
+        if name == "eager":
+            eager_steps(eng)
+        with Launches({}) as counted:
+            run = timed_steps(eng, prompts, 32)
+        m = eng.metrics
+        steps_ = m.decode_steps + m.prefill_chunks
+        counted.expect(f"phase 24 {cfg.name} {name}",
+                       paged_attention=m.decode_steps * cfg.n_layers,
+                       moe_dispatch=n_moe * steps_,
+                       moe_combine=n_moe * steps_)
+        want = ((m.decode_steps - 1, m.prefill_chunks - 1)
+                if name == "graphed" else (0, 0))
+        got = (m.graphed_decode_steps, m.graphed_prefill_chunks)
+        if got != want:
+            raise AssertionError(f"phase 24 {cfg.name} {name}: graphed "
+                                 f"(decode, prefill) {got} != {want}")
+        runs[name] = dict(run, launches=counted.n, metrics=m.summary())
+        traces[name] = traced_step_kernels(eng, prompts[0][:100])
+        del eng
+        free_card()
+    g, e = runs["graphed"], runs["eager"]
+    if g["tokens"] != e["tokens"] or g["launches"] != e["launches"]:
+        raise AssertionError(f"phase 24 {cfg.name}: graphed vs eager "
+                             f"streams equal {g['tokens'] == e['tokens']}, "
+                             f"launches {g['launches']} vs {e['launches']}")
+    tg, te = traces["graphed"], traces["eager"]
+    want = GRAPH_KERNELS + (GRAPH_MOE_KERNELS if n_moe else ())
+    missing = [k for k in want
+               if not any(k in name for name in tg["kernel_s"])]
+    per = {k: statistics.mean(t["per_step"]["decode"])
+           for k, t in traces.items()}
+    if missing or tg["tokens"] != te["tokens"] \
+            or tg["callers"]["decode"] - {"cudaGraphLaunch"} - \
+            te["callers"]["decode"] \
+            or "cudaGraphLaunch" not in tg["callers"]["decode"] \
+            or abs(per["graphed"] - per["eager"]) > 0.05 * per["eager"]:
+        raise AssertionError(
+            f"phase 24 {cfg.name} trace: kernels missing {missing}; "
+            f"decode-step kernels {per}; host calls launching them "
+            f"{ {k: sorted(t['callers']['decode']) for k, t in traces.items()} }")
+    out = {}
+    for name, run in runs.items():
+        out[name] = {k: (statistics.median(v), statistics.mean(v), len(v))
+                     for k, v in run["ms"].items()}
+    print(f"phase 24: {cfg.name} ({cfg.n_layers} layers) ServeEngine, phase "
+          f"4's 12 greedy prompts, 32 new each, graphed vs direct step "
+          f"calls: streams equal, launches {json.dumps(g['launches'])} both "
+          f"ways; graphed steps {g['metrics']['graphed_decode_steps']} of "
+          f"{g['metrics']['decode_steps']} decode, "
+          f"{g['metrics']['graphed_prefill_chunks']} of "
+          f"{g['metrics']['prefill_chunks']} prefill", flush=True)
+    for kind in ("decode", "prefill"):
+        (gm, gmean, n), (em, emean, _) = out["graphed"][kind], \
+            out["eager"][kind]
+        print(f"phase 24: {cfg.name} untraced {kind} step ms, median (mean) "
+              f"over {n}: graphed {gm:.3f} ({gmean:.3f}), direct {em:.3f} "
+              f"({emean:.3f})", flush=True)
+    print(f"phase 24: {cfg.name} traced decode steps: kernels a step "
+          f"graphed {per['graphed']:.1f}, direct {per['eager']:.1f}; host "
+          f"calls launching them graphed "
+          f"{sorted(tg['callers']['decode'])}; {', '.join(want)} traced "
+          f"under their names; {card_line()}", flush=True)
+    return out
 
 
 def read_paths(cfg, params, prompt) -> dict:
@@ -4415,7 +4614,7 @@ def main() -> int:
 
 
 def phases(sweep, workers: int, start: float) -> int:
-    """Phases 1-23 (the sweep's pool is already forked)."""
+    """Phases 1-24 (the sweep's pool is already forked)."""
     from repro_torch.configs import registry
     from repro_torch.kernels import _build
 
@@ -4456,6 +4655,7 @@ def phases(sweep, workers: int, start: float) -> int:
           f"{time.monotonic() - t0:.2f} s", flush=True)
     launches = phase_serve(cfg, params)["paged_attention"]
     phase_reads(cfg, params)
+    phase_graphs(cfg, params)
     del params
 
     from repro_torch.core.cgra import cache_grid
@@ -4500,6 +4700,7 @@ def phases(sweep, workers: int, start: float) -> int:
           f"drawn in {time.monotonic() - t0:.2f} s", flush=True)
     moe_launches = phase_serve(dbrx, params, phase="11")
     phase_moe_logits(dbrx, params)
+    phase_graphs(dbrx, params)
     del params
     torch.cuda.empty_cache()
     phase_moe_logits_f32(dbrx)
@@ -4617,7 +4818,7 @@ def phases(sweep, workers: int, start: float) -> int:
         "launches_by_phase": {"13": ssd_launches, "18": fam["ssd_scan"],
                               "19": p19["ssd_scan"]},
         **ssd, "custom_op_us": dry["overhead"]["ssd_scan"]})
-    print(f"phases 1-23 passed in {time.monotonic() - start:.1f} s",
+    print(f"phases 1-24 passed in {time.monotonic() - start:.1f} s",
           flush=True)
     print(card_line())
     print(json.dumps({"kernels": kernels}))

@@ -30,7 +30,8 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch import sharding as shard_ctx
-from repro_torch.models import api
+from repro_torch.launch.step_graph import StepGraph
+from repro_torch.models import api, paged_lm
 from repro_torch.models.types import ModelConfig, ShapeConfig
 from repro_torch.optim import adamw
 from repro_torch.runtime.elastic import reshard
@@ -217,11 +218,20 @@ class ServeSteps:
     ``decode(params, tokens, active, temps, key_data, cache)`` and
     ``prefill(params, tokens, n_valid, slot, temp, key_data, cache)`` both
     update ``cache`` in place and return it as their last output.
+    ``graphs`` holds the decode and prefill :class:`StepGraph` when the
+    steps replay CUDA graphs, else None.
     """
 
     decode: Any
     prefill: Any
     init_cache: Any          # () -> zeroed serve cache on the device
+    graphs: tuple | None = None
+
+    def replays(self) -> tuple[int, int]:
+        """(decode steps, prefill chunks) that ran as graph replays."""
+        if self.graphs is None:
+            return 0, 0
+        return self.graphs[0].replays, self.graphs[1].replays
 
 
 def build_serve_engine_steps(cfg: ModelConfig, *, slots: int, max_len: int,
@@ -238,7 +248,11 @@ def build_serve_engine_steps(cfg: ModelConfig, *, slots: int, max_len: int,
     With ``rules`` the model's activation constraints are installed and
     the cache lives on the rules' mesh, replicated (the reference gives
     the paged pools no spec); the params are expected on that mesh
-    (placed by ``param_specs``).  Without, the steps are plain calls."""
+    (placed by ``param_specs``).  Without, the steps are plain calls; on
+    a CUDA device each step kind's model half replays a CUDA graph from
+    its second call on (:mod:`repro_torch.launch.step_graph`), and the
+    sampler runs eagerly on the logits it leaves.  On the CPU or a mesh
+    every call runs eagerly."""
     if attn_read not in ("gather", "kernel"):
         raise ValueError(f"unknown attn_read {attn_read!r}")
     if attn_read == "kernel" and backend != "paged":
@@ -257,6 +271,11 @@ def build_serve_engine_steps(cfg: ModelConfig, *, slots: int, max_len: int,
             return cache
         return reshard(cache, rules, map_tree(lambda _: P(), cache))
 
+    if rules is None and device is not None \
+            and torch.device(device).type == "cuda":
+        return _graphed_steps(cfg, attn_read, sampling, return_logits,
+                              make_cache)
+
     def decode_fn(params, tokens, active, temps, key_data, cache):
         with ctx():
             return api.serve_decode(params, tokens, active, temps, key_data,
@@ -272,6 +291,37 @@ def build_serve_engine_steps(cfg: ModelConfig, *, slots: int, max_len: int,
 
     return ServeSteps(decode=decode_fn, prefill=prefill_fn,
                       init_cache=make_cache)
+
+
+def _graphed_steps(cfg: ModelConfig, attn_read: str, sampling: bool,
+                   return_logits: bool, make_cache) -> ServeSteps:
+    """The serve steps on a CUDA device without a mesh: each kind's model
+    half a :class:`StepGraph`, the two sharing one memory pool (they run
+    one after the other on one stream), the sampler after it, eager.  A
+    logits output is a copy of the graph's."""
+    pool = torch.cuda.graph_pool_handle()
+    decode = StepGraph(
+        lambda params, tokens, active, cache: paged_lm.serve_decode_logits(
+            params, tokens, active, cache, cfg, attn_read=attn_read),
+        (torch.long, torch.bool), pool)
+    prefill = StepGraph(
+        lambda params, tokens, n_valid, slot, cache:
+        paged_lm.serve_prefill_logits(params, tokens, n_valid, slot, cache,
+                                      cfg),
+        (torch.long, torch.long, torch.long), pool)
+
+    def decode_fn(params, tokens, active, temps, key_data, cache):
+        logits = decode(params, tokens, active, cache=cache)
+        return (paged_lm.next_tokens(logits, temps, key_data, sampling),
+                logits.clone() if return_logits else None, cache)
+
+    def prefill_fn(params, tokens, n_valid, slot, temp, key_data, cache):
+        logits = prefill(params, tokens, n_valid, slot, cache=cache)
+        return (paged_lm.next_tokens(logits, temp, key_data, sampling),
+                logits.clone() if return_logits else None, cache)
+
+    return ServeSteps(decode=decode_fn, prefill=prefill_fn,
+                      init_cache=make_cache, graphs=(decode, prefill))
 
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig,

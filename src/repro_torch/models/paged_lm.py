@@ -266,10 +266,16 @@ def shard_read(h: int, hkv: int, lo: int, hi: int):
     return read
 
 
-def _attn_prefill(p, x, c, cache, slot: int, positions, write_mask,
+def _row(t: torch.Tensor, i) -> torch.Tensor:
+    """t[i] for ``i`` a host int or a [1] index tensor, which is read on
+    the device (a 0-d index tensor would be read back to the host)."""
+    return t[i] if isinstance(i, int) else t.index_select(0, i)[0]
+
+
+def _attn_prefill(p, x, c, cache, slot, positions, write_mask,
                   cfg: ModelConfig) -> torch.Tensor:
-    """Prefill chunk for one slot: x [1,C,D] -> y [1,C,D]; writes this
-    layer's cache ``c`` in place.
+    """Prefill chunk for one slot (a host int or a [1] index tensor):
+    x [1,C,D] -> y [1,C,D]; writes this layer's cache ``c`` in place.
 
     Writes the chunk's K/V into the slot's cache region, then attends the
     chunk queries over the slot's full cache (earlier chunks included), so
@@ -285,7 +291,7 @@ def _attn_prefill(p, x, c, cache, slot: int, positions, write_mask,
     if "k_pages" in c:
         kp, vp = c["k_pages"], c["v_pages"]
         page = kp.shape[1]
-        table_row = cache["page_table"][slot].long()     # [P]
+        table_row = _row(cache["page_table"], slot).long()  # [P]
         lp = (positions // page).clamp(0, table_row.shape[0] - 1)
         pid = torch.where(write_mask, table_row[lp], NULL_PAGE)
         off = torch.where(write_mask, positions % page, sharding.replicated(
@@ -300,10 +306,14 @@ def _attn_prefill(p, x, c, cache, slot: int, positions, write_mask,
         kc, vc = c["k"], c["v"]                          # [B,Hkv,S+1,Dh]
         s_pad = kc.shape[2] - 1
         pos_w = torch.where(write_mask, positions.clamp(0, s_pad - 1), s_pad)
-        kc[slot][:, pos_w, :] = k[0]
-        vc[slot][:, pos_w, :] = v[0]
-        k_read = kc[slot][None, :, :s_pad, :]
-        v_read = vc[slot][None, :, :s_pad, :]
+        if isinstance(slot, int):
+            kc[slot][:, pos_w, :] = k[0]
+            vc[slot][:, pos_w, :] = v[0]
+        else:     # slot [1] broadcasts over the positions: rows [C,Hkv,Dh]
+            kc[slot, :, pos_w, :] = k[0].transpose(0, 1)
+            vc[slot, :, pos_w, :] = v[0].transpose(0, 1)
+        k_read = _row(kc, slot)[None, :, :s_pad, :]
+        v_read = _row(vc, slot)[None, :, :s_pad, :]
     s_len = k_read.shape[2]
     y = layers.cache_attention(
         q, k_read, v_read, torch.arange(s_len, device=x.device)[None, :],
@@ -323,19 +333,26 @@ def _block(p, x, attn_fn, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
-@torch.no_grad()
-def serve_decode_step(params: LM, tokens, active, temps, key_data, cache,
-                      cfg: ModelConfig, *, attn_read: str = "gather",
-                      sampling: bool = True, return_logits: bool = False):
-    """One continuous-batching decode step.
+def next_tokens(logits: torch.Tensor, temps, key_data,
+                 sampling: bool) -> torch.Tensor:
+    """The sampled (``sampling``) or greedy tokens of logits [..., V]."""
+    if sampling:
+        return _sample(logits, temps, key_data)
+    return logits.argmax(dim=-1).to(torch.int32)
 
-    tokens int [B] (each slot's pending input token) and active bool [B],
-    as tensors on the cache's device or host arrays; temps float32 [B] and
-    key_data uint32 [B,2] as host arrays.  Active slots append their
-    token's K/V at position ``lengths[b]`` and advance; inactive slots are
-    write-diverted and their outputs are garbage the host ignores.
-    Returns ``(next_tokens [B] int32, logits [B,V] float32 | None, cache)``
-    with ``cache`` updated in place.
+
+@torch.no_grad()
+def serve_decode_logits(params: LM, tokens, active, cache, cfg: ModelConfig,
+                        *, attn_read: str = "gather") -> torch.Tensor:
+    """The model half of a decode step: logits [B, V] float32 of each
+    slot's pending token, its K/V appended at ``lengths[b]`` and ``lengths``
+    advanced for the active slots, in place.
+
+    tokens int [B] and active bool [B], as tensors on the cache's device
+    or host arrays.  For a fixed B it issues one fixed sequence of
+    kernels, whatever the batch holds: everything the host decides is in
+    ``tokens``, ``active`` and the cache's own ``lengths`` / ``page_table``
+    tensors (the graphed step's body, :mod:`repro_torch.launch.step_graph`).
     """
     lengths = cache["lengths"]
     device = lengths.device
@@ -351,16 +368,72 @@ def serve_decode_step(params: LM, tokens, active, temps, key_data, cache,
     logits = (x[:, 0, :] @ _lm_head(params, cfg)).float()
     # the sampler runs on the whole logits on every rank
     logits = sharding.full(sharding.constrain(logits, "decode_logits"))
-    if sampling:
-        next_tokens = _sample(logits, temps, key_data)
-    else:
-        next_tokens = logits.argmax(dim=-1).to(torch.int32)
     cache["lengths"] += active.to(torch.int32)
-    return next_tokens, (logits if return_logits else None), cache
+    return logits
 
 
 @torch.no_grad()
-def serve_prefill_chunk(params: LM, tokens, n_valid: int, slot: int, temp,
+def serve_decode_step(params: LM, tokens, active, temps, key_data, cache,
+                      cfg: ModelConfig, *, attn_read: str = "gather",
+                      sampling: bool = True, return_logits: bool = False):
+    """One continuous-batching decode step.
+
+    tokens int [B] (each slot's pending input token) and active bool [B],
+    as tensors on the cache's device or host arrays; temps float32 [B] and
+    key_data uint32 [B,2] as host arrays.  Active slots append their
+    token's K/V at position ``lengths[b]`` and advance; inactive slots are
+    write-diverted and their outputs are garbage the host ignores.
+    Returns ``(next_tokens [B] int32, logits [B,V] float32 | None, cache)``
+    with ``cache`` updated in place.
+    """
+    logits = serve_decode_logits(params, tokens, active, cache, cfg,
+                                 attn_read=attn_read)
+    return (next_tokens(logits, temps, key_data, sampling),
+            logits if return_logits else None, cache)
+
+
+@torch.no_grad()
+def serve_prefill_logits(params: LM, tokens, n_valid, slot, cache,
+                         cfg: ModelConfig) -> torch.Tensor:
+    """The model half of a prefill chunk: logits [V] float32 of the last
+    valid position of ``tokens`` (``n_valid`` prompt tokens padded to the
+    fixed chunk length ``C = len(tokens)``) for one slot, their K/V
+    appended from ``lengths[slot]`` and ``lengths[slot]`` advanced by
+    ``n_valid``, in place.
+
+    ``n_valid`` and ``slot`` are host ints or 0-d tensors.  Off a mesh
+    they become 0-d tensors on the cache's device, so that for a fixed C
+    the chunk issues one fixed sequence of kernels whatever slot and count
+    it serves (the graphed step's body,
+    :mod:`repro_torch.launch.step_graph`); on a mesh they stay host ints.
+    """
+    lengths = cache["lengths"]
+    device = lengths.device
+    tokens = sharding.replicated(
+        torch.as_tensor(tokens, device=device).long(), lengths)
+    chunk = tokens.shape[0]
+    if isinstance(lengths, DTensor):
+        n_valid, slot = int(n_valid), int(slot)
+        last = min(max(n_valid - 1, 0), chunk - 1)
+    else:
+        n_valid = torch.as_tensor(n_valid, device=device).long()
+        slot = torch.as_tensor(slot, device=device).long().reshape(1)
+        last = (n_valid - 1).clamp(0, chunk - 1).reshape(1)
+    ar = sharding.replicated(torch.arange(chunk, device=device), lengths)
+    positions = _row(lengths, slot).long() + ar
+    write_mask = ar < n_valid
+    x = sharding.gathered(params.embed)[tokens[None, :]]  # [1,C,D]
+    for block, c in zip(params.blocks, cache["layers"]):
+        x = _block(block, x, lambda pa, h, c=c: _attn_prefill(
+            pa, h, c, cache, slot, positions, write_mask, cfg), cfg)
+    x = layers.apply_norm(params.final_norm, x, cfg)
+    logits = sharding.full((_row(x[0], last) @ _lm_head(params, cfg)).float())
+    sharding.local(lengths)[slot] += n_valid
+    return logits
+
+
+@torch.no_grad()
+def serve_prefill_chunk(params: LM, tokens, n_valid, slot, temp,
                         key_data, cache, cfg: ModelConfig, *,
                         sampling: bool = True, return_logits: bool = False):
     """Prefill ``n_valid`` prompt tokens (padded to the fixed chunk length
@@ -374,25 +447,6 @@ def serve_prefill_chunk(params: LM, tokens, n_valid: int, slot: int, temp,
     logits (only meaningful on the final chunk of a prompt); ``cache`` is
     updated in place.
     """
-    lengths = cache["lengths"]
-    device = lengths.device
-    tokens = sharding.replicated(
-        torch.as_tensor(tokens, device=device).long(), lengths)
-    n_valid, slot = int(n_valid), int(slot)
-    chunk = tokens.shape[0]
-    ar = sharding.replicated(torch.arange(chunk, device=device), lengths)
-    positions = lengths[slot].long() + ar
-    write_mask = ar < n_valid
-    x = sharding.gathered(params.embed)[tokens[None, :]]  # [1,C,D]
-    for block, c in zip(params.blocks, cache["layers"]):
-        x = _block(block, x, lambda pa, h, c=c: _attn_prefill(
-            pa, h, c, cache, slot, positions, write_mask, cfg), cfg)
-    x = layers.apply_norm(params.final_norm, x, cfg)
-    last = x[0, min(max(n_valid - 1, 0), chunk - 1)]
-    logits = sharding.full((last @ _lm_head(params, cfg)).float())
-    if sampling:
-        token = _sample(logits, temp, key_data)
-    else:
-        token = logits.argmax().to(torch.int32)
-    sharding.local(lengths)[slot] += n_valid
-    return token, (logits if return_logits else None), cache
+    logits = serve_prefill_logits(params, tokens, n_valid, slot, cache, cfg)
+    return (next_tokens(logits, temp, key_data, sampling),
+            logits if return_logits else None, cache)

@@ -34,7 +34,11 @@ Where the reference differs: the engine runs on the CUDA card unless the
 caller passes ``device="cpu"`` (it raises when no card is present rather
 than carry on on the CPU), and the paged backend reads decode attention
 through the hand-written paged-attention kernel by default
-(``attn_read="kernel"``; the reference defaults to ``"gather"``).
+(``attn_read="kernel"``; the reference defaults to ``"gather"``).  On the
+card without a mesh each step kind's model half replays a CUDA graph from
+its second call on (:mod:`repro_torch.launch.step_graph`), where the
+reference's jit replays a compiled step; ``metrics.graphed_decode_steps``
+and ``graphed_prefill_chunks`` count the replays.
 """
 from __future__ import annotations
 
@@ -344,6 +348,8 @@ class ServeEngine:
                 if self.watchdog.record(self.metrics.steps, dt):
                     self.metrics.stragglers += 1
                 self.metrics.preemptions = self.sched.n_preemptions
+                (self.metrics.graphed_decode_steps,
+                 self.metrics.graphed_prefill_chunks) = self.steps.replays()
                 self.metrics.on_step(action.kind,
                                      self.sched.occupancy() / self.n_slots,
                                      self.pool.utilization())

@@ -70,6 +70,9 @@ class EngineMetrics:
     steps: int = 0
     decode_steps: int = 0
     prefill_chunks: int = 0
+    # steps whose model half replayed a CUDA graph (the card, no mesh)
+    graphed_decode_steps: int = 0
+    graphed_prefill_chunks: int = 0
     tokens_sampled: int = 0
     preemptions: int = 0
     timeouts: int = 0
@@ -102,6 +105,8 @@ class EngineMetrics:
             "steps": self.steps,
             "decode_steps": self.decode_steps,
             "prefill_chunks": self.prefill_chunks,
+            "graphed_decode_steps": self.graphed_decode_steps,
+            "graphed_prefill_chunks": self.graphed_prefill_chunks,
             "tokens_sampled": self.tokens_sampled,
             "preemptions": self.preemptions,
             "timeouts": self.timeouts,
