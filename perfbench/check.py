@@ -1,20 +1,22 @@
 """What decides ``correct``: the served tokens against the plain reference.
 
 Once the window has closed and the program's state is freed, a sample of
-the greedy requests that finished, drawn from the seed and holding the
-longest of them, goes to the reference: it runs once over each prompt
-with the tokens that were served, and each served token is read at the
-position that produced it.  The number compared is the widest gap by
-which a served token's logit lies below the reference's best at its
-position (``max_logit_gap``), their mean (``mean_logit_gap``), or the
-largest of the judged requests' own mean gaps (``max_request_mean_gap``),
-which a fault in one slot's stream moves however many sound requests
-are judged beside it.  That number reads alone only the requests with
-at least the limits file's ``min_request_tokens`` judged tokens (the
-shorter ones stay in the mean), so that a short request's few near-ties
-are not read as a fault.  A cell's limits file names the numbers it
-compares.  A request sampled at a temperature is not judged this way;
-the mix holds greedy requests for this.
+the greedy requests that finished, drawn from the seed across the batch
+slots that served them and holding the longest of them, goes to the
+configuration's reference module (``perfbench.reference`` in its file):
+it runs once over each prompt with the tokens that were served, and each
+served token is read at the position that produced it.  The number
+compared is the widest gap by which a served token's logit lies below
+the reference's best at its position (``max_logit_gap``), their mean
+(``mean_logit_gap``), or the largest of the judged requests' own mean
+gaps (``max_request_mean_gap``), which a fault in one slot's stream
+moves however many sound requests are judged beside it.  That number
+reads alone only the requests with at least the limits file's
+``min_request_tokens`` judged tokens (the shorter ones stay in the
+mean), so that a short request's few near-ties are not read as a fault.
+A cell's limits file names the numbers it compares.  A request sampled
+at a temperature is not judged this way; the mix holds greedy requests
+for this.
 
 The control (``control=True``, read only by ``perfbench/calibrate.py``)
 is the reference in float8: at the same positions the token that it puts
@@ -26,14 +28,17 @@ import numpy as np
 import torch
 
 from . import weights
-from .reference import decoder
 
 
 def sample(finished: list, seed: int, tokens: int, max_requests: int
            ) -> list:
-    """Greedy finished requests (the program's, with ``prompt`` and
-    ``out_tokens``): the longest first, then others drawn from the seed
-    until ``tokens`` served tokens or ``max_requests`` requests."""
+    """Greedy finished requests (each with ``prompt``, ``out_tokens``,
+    ``params`` and ``slot``, the batch slot that served its last token):
+    the longest first, then others drawn from the seed one slot at a time,
+    each round through every slot that served one in an order drawn from
+    the seed, the longest's slot last, until ``tokens`` served tokens or
+    ``max_requests`` requests.  So a fault that breaks some of the batch's
+    rows is judged whichever rows it breaks."""
     greedy = [r for r in finished if r.params.temperature == 0.0
               and r.out_tokens]
     if not greedy:
@@ -41,11 +46,18 @@ def sample(finished: list, seed: int, tokens: int, max_requests: int
     greedy.sort(key=lambda r: (len(r.prompt) + len(r.out_tokens), r.rid))
     out = [greedy.pop()]
     rng = np.random.default_rng([int(seed), 2])
+    by_slot: dict = {}
     for i in rng.permutation(len(greedy)):
-        if (sum(len(r.out_tokens) for r in out) >= tokens
-                or len(out) >= max_requests):
-            break
-        out.append(greedy[i])
+        by_slot.setdefault(greedy[i].slot, []).append(greedy[i])
+    order = [list(by_slot)[i] for i in rng.permutation(len(by_slot))]
+    order.sort(key=lambda s: s == out[0].slot)
+    while any(by_slot[s] for s in order):
+        for s in order:
+            if (sum(len(r.out_tokens) for r in out) >= tokens
+                    or len(out) >= max_requests):
+                return out
+            if by_slot[s]:
+                out.append(by_slot[s].pop(0))
     return out
 
 
@@ -96,17 +108,17 @@ def request_mean_max(per_request: list, min_tokens: int) -> float:
     return max(s / n for n, s in groups) if groups else float("inf")
 
 
-def judge(arch: dict, seed: int, reqs: list, device, control: bool = False
-          ) -> dict:
-    """The readings of one run: :func:`numbers` of the served tokens of
-    ``reqs``, the tokens and requests judged, the reference's largest
-    |Q|, |K|, |V| (against the model's clamp, if it has one), and with
-    ``control`` the same numbers of the float8 reference's first tokens
-    at the same positions."""
+def judge(ref, arch: dict, seed: int, reqs: list, device,
+          control: bool = False) -> dict:
+    """The readings of one run by the reference module ``ref``:
+    :func:`numbers` of the served tokens of ``reqs``, the tokens and
+    requests judged, the reference's largest |Q|, |K|, |V| (against the
+    model's clamp, if it has one), and with ``control`` the same numbers
+    of the float8 reference's first tokens at the same positions."""
     seqs, rows, toks = served(reqs)
     modes = ("f32", "fp8") if control else ("f32",)
-    out = decoder.logits(arch, lambda p: weights.draw(arch, seed, p, device),
-                         seqs, rows, modes=modes, device=device)
+    out = ref.logits(arch, lambda p: weights.draw(ref, arch, seed, p, device),
+                     seqs, rows, modes=modes, device=device)
     g = gaps(out["f32"], toks)
     res = {**numbers(g), "tokens": sum(x.numel() for x in g),
            "requests": len(reqs),

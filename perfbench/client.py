@@ -10,9 +10,11 @@ A run has phases: ``ramp`` (requests sent to reach a steady state, part
 of set-up), ``window`` (the measured seconds), ``trace`` (a few more
 steps under the profiler, in a traced run) and ``drain`` (an open loop
 waits, arrivals going on, until every request due in the window has its
-first token).  Each step is recorded with its phase, its wall time, its
-kind and the lengths it worked on, which the per-layer readers and the
-roofline counts take.
+first token; a closed loop's clients send nothing more and wait until
+the requests they have sent are done, so that the check can judge them).
+Each step is recorded with its phase, its wall time, its kind and the
+lengths it worked on, which the per-layer readers and the roofline
+counts take.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ class Sent:
     req: object = None                 # the program's Request
     refused: bool = False
     token_times: list = dataclasses.field(default_factory=list)
+    slot: int = -1                     # the batch slot of its last token
 
 
 @dataclasses.dataclass
@@ -96,6 +99,7 @@ class Client:
 
         def on_token(piece, req, sent=sent):
             sent.token_times.append(clock())
+            sent.slot = req.slot
 
         sent.submitted = clock()
         try:
@@ -173,17 +177,22 @@ class Client:
                     on_phase and on_phase(phase)
             if phase == "window" and now >= self.rec.t0 + seconds:
                 self.rec.t1 = self.rec.t0 + seconds
-                if not trace_steps:
-                    break
-                phase = "trace"
+                phase = "trace" if trace_steps else "drain"
                 on_phase and on_phase(phase)
             if phase == "trace" and traced >= trace_steps:
-                break
-            for c, s in enumerate(current):
-                if self._done(s):
-                    current[c] = self._submit(next(queues[c]), now, c)
+                phase = "drain"
+                on_phase and on_phase(phase)
+            if phase == "drain":
+                if all(self._done(s) for s in current):
+                    break
+            else:
+                for c, s in enumerate(current):
+                    if self._done(s):
+                        current[c] = self._submit(next(queues[c]), now, c)
             if self._step(phase):
                 traced += phase == "trace"
+            elif phase == "drain":
+                break
         on_phase and on_phase("end")
         return self.rec
 

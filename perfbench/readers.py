@@ -2,8 +2,10 @@
 
 A metric file (``perfbench/end_to_end/<name>.py``,
 ``perfbench/per_layer/<name>.py``) holds ``read(ctx) -> float | None``;
-``ctx`` is a :class:`Context`.  A reader that finds nothing to read
-returns None, and the run leaves that metric out of its line.
+``ctx`` is a :class:`Context`, which carries the configuration's
+reference module for the model's layer and FLOP counts
+(:mod:`perfbench.reference.decoder`).  A reader that finds nothing to
+read returns None, and the run leaves that metric out of its line.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from .roofline import counts
 @dataclasses.dataclass
 class Context:
     arch: dict
+    ref: object                  # the configuration's reference module
     traffic: dict
     record: object               # client.Record
     setup_s: float
@@ -74,16 +77,18 @@ def paged_attention_roofline(ctx: Context, names: tuple) -> Optional[float]:
     if secs <= 0 or not steps:
         return None
     page = ctx.traffic["engine"]["page_size"]
+    layers = ctx.ref.attention_layers(ctx.arch)
     flops = nbytes = 0
     for s in steps:
-        f, b = counts.paged_attention(ctx.arch, s.rows, page)
+        f, b = counts.paged_attention(ctx.arch, s.rows, page, layers)
         flops, nbytes = flops + f, nbytes + b
     return counts.roofline_pct(flops, nbytes, secs)
 
 
 def dispatch_combine_roofline(ctx: Context, names: tuple
                               ) -> Optional[float]:
-    if ctx.trace is None or not ctx.arch["n_experts"]:
+    layers = ctx.ref.moe_layers(ctx.arch)
+    if ctx.trace is None or not layers:
         return None
     secs = kernel_seconds(ctx, names)
     steps = traced_steps(ctx)
@@ -92,7 +97,7 @@ def dispatch_combine_roofline(ctx: Context, names: tuple
     flops = nbytes = 0
     for s in steps:
         rows = len(s.rows) if s.kind == "decode" else s.n_valid
-        f, b = counts.dispatch_combine(ctx.arch, rows)
+        f, b = counts.dispatch_combine(ctx.arch, rows, layers)
         flops, nbytes = flops + f, nbytes + b
     return counts.roofline_pct(flops, nbytes, secs)
 
@@ -110,7 +115,7 @@ def mfu_pct(ctx: Context) -> Optional[float]:
     steps = window_steps(ctx)
     if not steps:
         return None
-    flops = sum(counts.step_flops(ctx.arch, s.kind, s.rows, s.start,
-                                  s.n_valid) for s in steps)
+    flops = sum(ctx.ref.step_flops(ctx.arch, s.kind, s.rows, s.start,
+                                   s.n_valid) for s in steps)
     secs = ctx.record.t1 - ctx.record.t0
     return 100.0 * flops / (secs * counts.peaks()["bf16_flops_per_s"])

@@ -18,6 +18,15 @@ nothing of the program.
 activation with a weight rounds both to float8 e4m3 first, per token and
 per output channel scaled to the format's largest value, as a program
 that served in fp8 would.
+
+A configuration file names its reference module (``perfbench.reference``)
+and the harness finds it by path.  Besides :func:`logits`, the module
+gives the weights' parts, each part's :func:`layout` and each leaf kind's
+value (:func:`leaf`), which :func:`perfbench.weights.draw` reads, and the
+counts the per-layer readers take: :func:`active_params`,
+:func:`step_flops`, :func:`attention_layers` and :func:`moe_layers`.  A
+family that extends this one imports it and passes its own layer to
+:func:`forward`.
 """
 from __future__ import annotations
 
@@ -29,6 +38,57 @@ import torch
 E4M3_MAX = 448.0
 Q_BLOCK = 1024                # query rows a block of the attention
 
+
+# -- the weights --------------------------------------------------------------
+
+def parts(arch: dict) -> list:
+    """Names of the model's parts, in the order the program holds them."""
+    names = ["embed"]
+    if not arch["tie_embeddings"]:
+        names.append("head")
+    names.append("final_norm")
+    names += [f"layer{i}" for i in range(arch["n_layers"])]
+    return names
+
+
+def layout(arch: dict, part: str) -> list:
+    """[(name, shape, kind)] of one part, in the order its buffer is cut;
+    ``kind`` is one of :func:`leaf`'s."""
+    d, v = arch["d_model"], arch["vocab_size"]
+    if part == "embed":
+        return [("embed", (v, d), "w")]
+    if part == "head":
+        return [("head", (d, v), "w")]
+    if part == "final_norm":
+        return [("scale", (d,), "scale")]
+    hq, hkv, dh = arch["n_heads"], arch["n_kv_heads"], arch["d_head"]
+    f = arch["d_ff"]
+    out = [("mixer_norm", (d,), "scale"),
+           ("wq", (d, hq * dh), "w"), ("wk", (d, hkv * dh), "w"),
+           ("wv", (d, hkv * dh), "w"), ("wo", (hq * dh, d), "w")]
+    if arch["qkv_bias"]:
+        out += [("bq", (hq * dh,), "bias"), ("bk", (hkv * dh,), "bias"),
+                ("bv", (hkv * dh,), "bias")]
+    out.append(("ffn_norm", (d,), "scale"))
+    e = arch["n_experts"]
+    if e:
+        out += [("router", (d, e), "w"), ("wi_gate", (e, d, f), "w"),
+                ("wi_up", (e, d, f), "w"), ("wo_ffn", (e, f, d), "w")]
+    else:
+        out += [("wi_gate", (d, f), "w"), ("wi_up", (d, f), "w"),
+                ("wo_ffn", (f, d), "w")]
+    return out
+
+
+def leaf(kind: str, drawn: torch.Tensor) -> torch.Tensor:
+    """A leaf from its drawn bfloat16 view: "w" and "bias" are the drawn
+    value, "scale" is 1 + it in float32, so that a norm's scale or a QKV
+    bias that a program ignored would show.  A layer-norm bias is zero
+    (dbrx's norms have none); so is every absent leaf."""
+    return drawn.float() + 1.0 if kind == "scale" else drawn
+
+
+# -- the forward pass ---------------------------------------------------------
 
 def _q8(t: torch.Tensor, dim: int) -> torch.Tensor:
     """t rounded to float8 e4m3, scaled per slice along ``dim``."""
@@ -120,19 +180,33 @@ def ffn(x: torch.Tensor, w: dict, arch: dict, mode: str) -> torch.Tensor:
     return y
 
 
+def block(x: torch.Tensor, w: dict, arch: dict, mode: str,
+          stats: dict) -> torch.Tensor:
+    """One decoder layer of one sequence x [S, D]."""
+    x = x + attention(norm(x, w["mixer_norm"], arch), w, arch, mode, stats)
+    return x + ffn(norm(x, w["ffn_norm"], arch), w, arch, mode)
+
+
 def logits(arch: dict, part: Callable[[str], dict], seqs: list,
            rows: list, modes=("f32",), device=None) -> dict:
     """Logits [len(rows[i]), V] of each sequence ``seqs[i]`` (token ids)
     at its positions ``rows[i]``, for each mode, in float32.  ``part(name)``
     gives a part's weights (any dtype; taken to float32 here).  Returns
     ``{mode: [tensor, ...], "stats": {...}}``."""
+    return forward(arch, part, seqs, rows, modes, block)
+
+
+def forward(arch: dict, part: Callable[[str], dict], seqs: list,
+            rows: list, modes, layer: Callable) -> dict:
+    """:func:`logits` with ``layer(x, w, arch, mode, stats)`` as every
+    layer's function (``w`` the layer's part in float32)."""
     old = (torch.backends.cuda.matmul.allow_tf32,
            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
         with torch.no_grad():
-            return _logits(arch, part, seqs, rows, modes, device)
+            return _forward(arch, part, seqs, rows, modes, layer)
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = old
@@ -142,7 +216,7 @@ def _f32(w: dict) -> dict:
     return {k: v.float() for k, v in w.items()}
 
 
-def _logits(arch, part, seqs, rows, modes, device) -> dict:
+def _forward(arch, part, seqs, rows, modes, layer) -> dict:
     stats: dict = {}
     embed = part("embed")["embed"]
     xs = {m: [embed[torch.as_tensor(s, device=embed.device)].float()
@@ -152,9 +226,7 @@ def _logits(arch, part, seqs, rows, modes, device) -> dict:
         w = _f32(part(f"layer{i}"))
         for m in modes:
             for j, x in enumerate(xs[m]):
-                x = x + attention(norm(x, w["mixer_norm"], arch), w, arch, m,
-                                  stats)
-                xs[m][j] = x + ffn(norm(x, w["ffn_norm"], arch), w, arch, m)
+                xs[m][j] = layer(x, w, arch, m, stats)
         del w
     scale = part("final_norm")["scale"].float()
     if arch["tie_embeddings"]:
@@ -167,3 +239,45 @@ def _logits(arch, part, seqs, rows, modes, device) -> dict:
                               arch), head, m)
                   for x, r in zip(xs[m], rows)]
     return out
+
+
+# -- the counts the readers take ----------------------------------------------
+
+def attention_layers(arch: dict) -> int:
+    """Layers that read the paged KV cache: every one."""
+    return arch["n_layers"]
+
+
+def moe_layers(arch: dict) -> int:
+    """Layers that route tokens to experts: every one of a MoE."""
+    return arch["n_layers"] if arch["n_experts"] else 0
+
+
+def active_params(arch: dict) -> int:
+    """Parameters one token multiplies with in the layers (no embedding,
+    no head): attention, and the FFN or the router and top-k experts."""
+    d, f = arch["d_model"], arch["d_ff"]
+    hq, hkv, dh = arch["n_heads"], arch["n_kv_heads"], arch["d_head"]
+    attn = d * hq * dh * 2 + d * hkv * dh * 2
+    if arch["n_experts"]:
+        ffn = d * arch["n_experts"] + arch["top_k"] * 3 * d * f
+    else:
+        ffn = 3 * d * f
+    return arch["n_layers"] * (attn + ffn)
+
+
+def step_flops(arch: dict, kind: str, rows: list, start: int = 0,
+               n_valid: int = 0) -> float:
+    """Model FLOPs of a decode step (``rows``: attended lengths of its
+    active slots) or of a prefill chunk (positions start .. start+n-1):
+    2 x active parameters a token, attention's two products over the
+    positions each token attends, and the head for each token whose
+    logits the step needs (every decode row; a chunk's last position)."""
+    params = active_params(arch)
+    per_pos = 4 * attention_layers(arch) * arch["n_heads"] * arch["d_head"]
+    head = 2 * arch["d_model"] * arch["vocab_size"]
+    if kind == "decode":
+        return sum(2 * params + head + per_pos * n for n in rows)
+    n = n_valid
+    attended = n * start + n * (n + 1) // 2
+    return n * 2 * params + per_pos * attended + (head if n else 0)

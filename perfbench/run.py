@@ -4,15 +4,17 @@
 
 Loads the cell's configuration, traffic and limits by name
 (:mod:`perfbench.manifest`), draws the weights from the seed on the card,
-starts ``repro_torch``'s ServeEngine, ramps the traffic to a steady state,
+starts ``repro_torch``'s ServeEngine on the model that the
+configuration's adapter builds, ramps the traffic to a steady state,
 measures for ``--seconds``, and then, with the program freed, judges a
-sample of the served tokens against the plain reference.  The last line
-of standard output is one JSON object: ``correct``, ``attempted``,
-``failed``, ``metrics`` (the cell's end-to-end metrics, or with
-``--trace 1`` its per-layer metrics), ``device`` (and ``breakdown`` in a
-traced run), then ``checks``: each number compared beside its limit, which
-also end standard error.  Without a CUDA card, or with a module of JAX or
-of the JAX package loaded, it prints no result and exits non-zero.
+sample of the served tokens against the configuration's plain reference.
+The last line of standard output is one JSON object: ``correct``,
+``attempted``, ``failed``, ``metrics`` (the cell's end-to-end metrics, or
+with ``--trace 1`` its per-layer metrics), ``device`` (and ``breakdown``
+in a traced run), then ``checks``: each number compared beside its limit,
+which also end standard error.  Without a CUDA card, or with a module
+of JAX or of the JAX package loaded, it prints no result and exits
+non-zero.
 """
 import time
 
@@ -59,9 +61,11 @@ class _Light:
     """What the check needs of a finished request, kept once the program
     is freed."""
 
-    def __init__(self, r):
+    def __init__(self, sent):
+        r = sent.req
         self.rid, self.prompt = r.rid, list(r.prompt)
         self.out_tokens, self.params = list(r.out_tokens), r.params
+        self.slot = sent.slot
 
 
 def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
@@ -78,8 +82,7 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     t = time.perf_counter()
-    system = program.start(arch, cell.config_name, traffic["engine"], seed,
-                           device, clock=time.perf_counter)
+    system = program.start(cell, seed, device, clock=time.perf_counter)
     _say(f"weights and engine {time.perf_counter() - t:.3f} s "
          f"(process start to here {time.perf_counter() - t_start:.3f} s)")
     t = time.perf_counter()
@@ -101,7 +104,8 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     summary = (tracer.summary({i: s.kind for i, s in enumerate(rec.steps)})
                if tracer else None)
-    ctx = readers.Context(arch, traffic, rec, rec.t0 - t_start, summary)
+    ctx = readers.Context(arch, cell.ref, traffic, rec, rec.t0 - t_start,
+                          summary)
     wanted = cell.per_layer if trace else cell.end_to_end
     kind = "per_layer" if trace else "end_to_end"
     metrics = {}
@@ -116,11 +120,10 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
         window = [s for s in rec.sent if rec.t0 <= s.submitted < rec.t1]
     failed = sum(1 for s in window if s.refused or s.req.state in
                  (state.FAILED, state.CANCELLED))
-    finished = [s.req for s in rec.sent
+    finished = [_Light(s) for s in rec.sent
                 if s.req is not None and s.req.state is state.FINISHED]
     chk = traffic["check"]
-    judged = [_Light(r) for r in check.sample(
-        finished, seed, chk["tokens"], chk["max_requests"])]
+    judged = check.sample(finished, seed, chk["tokens"], chk["max_requests"])
     result = {"attempted": len(window), "failed": failed,
               "metrics": metrics,
               "device": {"platform": "gpu" if cuda else "cpu",
@@ -139,7 +142,8 @@ def run_cell(root, name: str, seed: int, seconds: float, trace: bool,
     if cuda:
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    readings = check.judge(arch, seed, judged, device, control=control)
+    readings = check.judge(cell.ref, arch, seed, judged, device,
+                           control=control)
     _say(f"reference over {readings['tokens']} tokens of "
          f"{readings['requests']} requests {time.perf_counter() - t:.3f} s")
     ok, checks = check.verdict(readings, cell.limits)

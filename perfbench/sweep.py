@@ -70,7 +70,7 @@ def one_run(cell, system, rate: float, seconds: float, seed: int,
     specs = loadgen.requests(traffic, cell.arch["vocab_size"], seed, seconds)
     rec = client.Client(system.engine, traffic, specs, seed).run(seconds)
     mid = (rec.t0 + rec.t1) / 2
-    ctx = readers.Context(cell.arch, traffic, rec, 0.0)
+    ctx = readers.Context(cell.arch, cell.ref, traffic, rec, 0.0)
     steps = readers.window_steps(ctx)
     tokens = sum(1 for s in rec.sent for t in s.token_times
                  if readers.in_window(ctx, t))
@@ -133,9 +133,7 @@ def main(argv=None) -> int:
     from perfbench import manifest, program
     cell = manifest.cell(ROOT, args.workload)
     seeds = [int(s) for s in args.seeds.split(",")]
-    system = program.start(cell.arch, cell.config_name,
-                           cell.traffic["engine"], seeds[0], "cuda",
-                           time.perf_counter)
+    system = program.start(cell, seeds[0], "cuda", time.perf_counter)
     rows = []
     for rate in (float(r) for r in args.rates.split(",")):
         for seed in seeds:

@@ -1,11 +1,11 @@
 """A temporary benchmark tree with tiny cells, for the CPU tests.
 
-``tiny_tree(tmp)`` copies the manifest and the data and metric files of
-``perfbench/`` into ``tmp`` and adds two tiny configurations (a dense
-decoder and a 4-expert MoE with dbrx's norms and clamp) under a closed and
-an open traffic mix, each with its limits file.  The harness's code is
-imported from the repository; only the files it finds by name come from
-the tree.
+``tiny_tree(tmp)`` copies the manifest and the data, metric, reference
+and adapter files of ``perfbench/`` into ``tmp`` and adds two tiny
+configurations of the decoder family (a dense decoder and a 4-expert MoE
+with dbrx's norms and clamp) under a closed and an open traffic mix, each
+with its limits file.  The harness's code is imported from the
+repository; only the files it finds by name come from the tree.
 """
 from __future__ import annotations
 
@@ -71,11 +71,15 @@ def write(path: Path, obj) -> None:
 
 def tiny_tree(tmp: Path) -> Path:
     base = tmp / "perfbench"
-    for d in ("configs", "traffic", "limits", "end_to_end", "per_layer"):
-        shutil.copytree(ROOT / "perfbench" / d, base / d)
+    for d in ("configs", "traffic", "limits", "end_to_end", "per_layer",
+              "reference", "adapters"):
+        shutil.copytree(ROOT / "perfbench" / d, base / d,
+                        ignore=shutil.ignore_patterns("__pycache__"))
     man = json.loads((ROOT / "BENCHMARK.json").read_text())
     for name, arch in (("tiny-dense", DENSE), ("tiny-moe", MOE)):
-        write(base / "configs" / f"{name}.json", {"perfbench": {"arch": arch}})
+        write(base / "configs" / f"{name}.json", {"perfbench": {
+            "arch": arch, "reference": "perfbench/reference/decoder.py",
+            "adapter": "perfbench/adapters/decoder.py"}})
         man["configs"].append({"name": name, "source": "test",
                                "file": f"perfbench/configs/{name}.json",
                                "reduced": [], "why": "test"})

@@ -3,10 +3,13 @@ and FLOP counts on hand-computed shapes, and the trace reader on a
 synthetic chrome trace."""
 from __future__ import annotations
 
+import types
+
 import pytest
 from perfbench_tiny import ROOT
 
 from perfbench import check, client, manifest, readers, sweep, trace
+from perfbench.reference import decoder
 from perfbench.roofline import counts
 
 QWEN = {"n_layers": 28, "d_model": 1536, "n_heads": 12, "n_kv_heads": 2,
@@ -35,8 +38,8 @@ def sent(due, times, submitted=None):
 def ctx(sent_list, steps=(), t0=10.0, t1=20.0, trace_summary=None,
         arch=QWEN):
     rec = client.Record(sent=list(sent_list), steps=list(steps), t0=t0, t1=t1)
-    return readers.Context(arch, {"engine": {"page_size": 16}}, rec, 7.5,
-                           trace_summary)
+    return readers.Context(arch, decoder, {"engine": {"page_size": 16}},
+                           rec, 7.5, trace_summary)
 
 
 def test_setup_s_reads_the_time_to_the_window():
@@ -131,6 +134,29 @@ def test_request_mean_reads_one_bad_request_among_sound_ones():
         pytest.approx(1.0)
 
 
+def test_sample_draws_across_slots():
+    """After the longest request, one request a slot in turn: two slots
+    that served one short greedy request each among twenty longer ones
+    in the other two are judged on every seed; sampled requests never
+    are, and the sample stops at the tokens asked for."""
+    def req(rid, slot, n, temperature=0.0):
+        return types.SimpleNamespace(
+            rid=rid, slot=slot, prompt=[1] * 8, out_tokens=[2] * n,
+            params=types.SimpleNamespace(temperature=temperature))
+    reqs = [req(0, 0, 30)]
+    reqs += [req(1 + i, 2 * (i % 2), 20) for i in range(20)]
+    reqs += [req(30, 1, 5), req(31, 3, 5), req(32, 1, 40, 0.8),
+             req(33, 3, 40, 0.8)]
+    for seed in range(20):
+        got = check.sample(reqs, 2**31 + seed, 64, 12)
+        assert got[0].rid == 0
+        assert {r.slot for r in got} == {0, 1, 2, 3}
+        assert all(r.params.temperature == 0.0 for r in got)
+        assert sum(len(r.out_tokens) for r in got) >= 64
+        assert sum(len(r.out_tokens) for r in got[:-1]) < 64
+    assert len(check.sample(reqs, 1, 10**6, 5)) == 5
+
+
 def test_step_readers():
     steps = [client.Step("window", "decode", 10.0 + i, 10.05 + i, [5, 9],
                          occupancy=0.5) for i in range(5)]
@@ -140,8 +166,8 @@ def test_step_readers():
     c = ctx([], steps)
     assert layer("decode_step_ms.chat")(c) == pytest.approx(50.0)
     assert layer("prefill_chunk_ms.chat")(c) == pytest.approx(200.0)
-    flops = 5 * counts.step_flops(QWEN, "decode", [5, 9]) + \
-        counts.step_flops(QWEN, "prefill", [], 0, 100)
+    flops = 5 * decoder.step_flops(QWEN, "decode", [5, 9]) + \
+        decoder.step_flops(QWEN, "prefill", [], 0, 100)
     assert layer("mfu_pct.chat")(c) == pytest.approx(
         100 * flops / (10.0 * 989e12))
     assert layer("device_idle_pct.chat")(c) is None
@@ -151,24 +177,26 @@ def test_step_readers():
 def test_counts_on_hand_computed_shapes():
     # qwen2: one layer's attention + MLP parameters
     attn = 1536 * 1536 * 2 + 1536 * 256 * 2
-    assert counts.active_params(QWEN) == 28 * (attn + 3 * 1536 * 8960)
+    assert decoder.active_params(QWEN) == 28 * (attn + 3 * 1536 * 8960)
     # dbrx: router + 4 of 16 experts
     attn = 6144 * 6144 * 2 + 6144 * 1024 * 2
-    assert counts.active_params(DBRX) == 8 * (attn + 6144 * 16
+    assert decoder.active_params(DBRX) == 8 * (attn + 6144 * 16
                                               + 4 * 3 * 6144 * 10752)
     # a decode row attending 100 tokens, page 16: K and V rows, q and out,
     # 7 table entries and the length, every layer
-    f, b = counts.paged_attention(QWEN, [100], 16)
+    assert decoder.attention_layers(QWEN) == 28
+    assert (decoder.moe_layers(QWEN), decoder.moe_layers(DBRX)) == (0, 8)
+    f, b = counts.paged_attention(QWEN, [100], 16, 28)
     assert f == 28 * 4 * 12 * 128 * 100
     assert b == 28 * (2 * 100 * 2 * 128 * 2 + 2 * 12 * 128 * 2 + 7 * 4 + 4)
-    f, b = counts.dispatch_combine(DBRX, 10)
+    f, b = counts.dispatch_combine(DBRX, 10, 8)
     per = (10 * 6144 * 2 + 40 * 4 + 40 * 6144 * 2) + \
         (40 * 6144 * 2 + 40 * 6 + 10 * 6144 * 2)
     assert b == 8 * per and f == 8 * 2 * 40 * 6144
     # prefill of 4 tokens at positions 10..13 attends 11+12+13+14 keys;
     # the head runs on the last position only
-    p = counts.step_flops(QWEN, "prefill", [], 10, 4)
-    assert p == 4 * 2 * counts.active_params(QWEN) \
+    p = decoder.step_flops(QWEN, "prefill", [], 10, 4)
+    assert p == 4 * 2 * decoder.active_params(QWEN) \
         + 4 * 28 * 12 * 128 * 50 + 2 * 1536 * 151936
     # the bound of the larger of FLOPs and bytes
     assert counts.roofline_pct(989e12, 0, 2.0) == pytest.approx(50.0)
@@ -234,7 +262,7 @@ def test_readers_on_a_traced_decode_step():
     assert layer("launches_per_decode_step.chat")(c) == 2
     assert layer("device_idle_pct.chat")(c) == pytest.approx(
         100 * (1 - 85 / 300))
-    f, b = counts.paged_attention(QWEN, [100, 50], 16)
+    f, b = counts.paged_attention(QWEN, [100, 50], 16, 28)
     assert layer("paged_attention_roofline.chat")(c) == pytest.approx(
         counts.roofline_pct(f, b, 20e-6))
     assert layer("moe_dispatch_combine_roofline.chat")(c) is None

@@ -1,5 +1,6 @@
 """What the benchmark may import: nothing of JAX or of the JAX package
-anywhere under ``perfbench/``, nothing of the program in the reference.
+anywhere under ``perfbench/``, nothing of the program in the reference
+modules, and the program only in ``program.py`` and the adapters.
 Top-level module names are compared whole (``repro_torch`` is not
 ``repro``)."""
 from __future__ import annotations
@@ -37,9 +38,14 @@ def test_the_reference_imports_nothing_of_the_program():
 
 
 def test_only_program_py_imports_the_program():
-    users = {p.name for p in FILES if "tests" not in p.parts
-             and "repro_torch" in top_level_imports(p)}
-    assert users == {"program.py"}
+    """``program.py`` and the configurations' adapters, and no other file
+    of the harness."""
+    users = {str(p.relative_to(ROOT / "perfbench")) for p in FILES
+             if "tests" not in p.parts and "repro_torch" in
+             top_level_imports(p)}
+    adapters = {p for p in users if p.startswith("adapters/")}
+    assert users - adapters == {"program.py"}
+    assert adapters, "no adapter imports the program"
 
 
 def test_run_refuses_a_loaded_jax_module(monkeypatch):

@@ -7,7 +7,7 @@ import json
 import re
 
 import pytest
-from perfbench_tiny import ROOT
+from perfbench_tiny import ROOT, tiny_tree
 
 from perfbench import check, manifest
 
@@ -141,8 +141,10 @@ def test_config_file_states_what_runs(conf):
     assert bench["dtype"] == data["torch_dtype"] == "bfloat16"
     for key, published in bench["reduced"].items():
         assert data[key] != published
-    ref = ROOT / bench["reference"]
-    assert ref.is_file()
+    assert bench["reference"].startswith("perfbench/reference/")
+    assert bench["adapter"].startswith("perfbench/adapters/")
+    assert (ROOT / bench["reference"]).is_file()
+    assert (ROOT / bench["adapter"]).is_file()
     if arch["n_experts"]:
         # dropless routing, as published: each expert can take the group
         assert arch["capacity_factor"] == arch["n_experts"] / arch["top_k"]
@@ -155,3 +157,24 @@ def test_metric_files_are_small_readers():
             fns = [n.name for n in tree.body
                    if isinstance(n, ast.FunctionDef)]
             assert "read" in fns, f
+
+
+@pytest.mark.parametrize("key", ["adapter", "reference"])
+@pytest.mark.parametrize("value", [None, "perfbench/program.py",
+                                   "{dir}absent.py"],
+                         ids=["missing", "elsewhere", "absent"])
+def test_a_configuration_without_its_modules_is_refused(tmp_path, key,
+                                                         value):
+    """No default module: a configuration that names no adapter or
+    reference, or one outside its directory or not there, is an error."""
+    tree = tiny_tree(tmp_path)
+    path = tree / "perfbench/configs/tiny-moe.json"
+    data = json.loads(path.read_text())
+    if value is None:
+        del data["perfbench"][key]
+    else:
+        data["perfbench"][key] = value.format(
+            dir=manifest.MODULE_DIRS[key])
+    path.write_text(json.dumps(data))
+    with pytest.raises(ValueError, match=f"perfbench.{key}"):
+        manifest.cell(tree, "tiny-moe.tclosed")

@@ -8,19 +8,24 @@ import pytest
 import torch
 from perfbench_tiny import DENSE, MOE
 
-from perfbench import program, weights
+from perfbench import weights
+from perfbench.adapters import decoder as adapter
 from perfbench.reference import decoder
 from repro_torch.models import lm as port_lm
 
 SEED = 2**31 + 4242
 
 
+def draw(arch, part):
+    return weights.draw(decoder, arch, SEED, part, "cpu")
+
+
 def port_logits(arch, seqs):
     """The port's own forward in float32 on the benchmark's weights: the
     last position's logits of each sequence."""
-    cfg = dataclasses.replace(program.model_config(arch, "t"),
+    cfg = dataclasses.replace(adapter.model_config(arch, "t"),
                               dtype="float32")
-    model = program.build_lm(cfg, arch, SEED, "cpu").float()
+    model = adapter.build_lm(cfg, arch, SEED, "cpu", decoder).float()
     out = []
     for s in seqs:
         tokens = torch.tensor([s])
@@ -37,8 +42,8 @@ def test_reference_matches_the_port_in_float32(arch, tol):
     torch.manual_seed(0)
     seqs = [torch.randint(0, arch["vocab_size"], (n,)).tolist()
             for n in (5, 17, 33)]
-    ref = decoder.logits(arch, lambda p: weights.draw(arch, SEED, p, "cpu"),
-                         seqs, [[len(s) - 1] for s in seqs])
+    ref = decoder.logits(arch, lambda p: draw(arch, p), seqs,
+                         [[len(s) - 1] for s in seqs])
     for r, p in zip(ref["f32"], port_logits(arch, seqs)):
         scale = r.abs().max()
         assert (r[0] - p).abs().max() <= tol * scale
@@ -47,10 +52,9 @@ def test_reference_matches_the_port_in_float32(arch, tol):
 def test_reference_reads_every_position_and_clamps():
     arch = dict(MOE, clip_qkv=1e-3)
     seqs = [list(range(1, 12))]
-    lo = decoder.logits(arch, lambda p: weights.draw(arch, SEED, p, "cpu"),
-                        seqs, [list(range(11))])
-    hi = decoder.logits(MOE, lambda p: weights.draw(MOE, SEED, p, "cpu"),
-                        seqs, [list(range(11))])
+    lo = decoder.logits(arch, lambda p: draw(arch, p), seqs,
+                        [list(range(11))])
+    hi = decoder.logits(MOE, lambda p: draw(MOE, p), seqs, [list(range(11))])
     assert lo["f32"][0].shape == (11, MOE["vocab_size"])
     # the largest |Q|, |K|, |V| is read before the clamp
     assert min(lo["stats"]["qkv_absmax"], hi["stats"]["qkv_absmax"]) > 1e-3
@@ -68,13 +72,13 @@ def test_control_rounds_to_float8():
 
 
 def test_weights_are_the_seeds_and_drawn_per_part():
-    a = weights.draw(DENSE, SEED, "layer1", "cpu")
-    b = weights.draw(DENSE, SEED, "layer1", "cpu")
-    c = weights.draw(DENSE, SEED + 1, "layer1", "cpu")
+    a = draw(DENSE, "layer1")
+    b = draw(DENSE, "layer1")
+    c = weights.draw(decoder, DENSE, SEED + 1, "layer1", "cpu")
     for k in a:
         assert torch.equal(a[k], b[k]) and not torch.equal(a[k], c[k])
     assert a["wq"].dtype == torch.bfloat16
     assert a["mixer_norm"].dtype == torch.float32
-    assert weights.parts(DENSE) == ["embed", "final_norm"] + [
+    assert decoder.parts(DENSE) == ["embed", "final_norm"] + [
         f"layer{i}" for i in range(DENSE["n_layers"])]
-    assert weights.parts(MOE)[1] == "head"
+    assert decoder.parts(MOE)[1] == "head"

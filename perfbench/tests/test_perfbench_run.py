@@ -1,8 +1,8 @@
 """Whole runs on the CPU at tiny sizes: the harness's look for a card
 skipped, everything else as on the card.  A sound run is correct; a run
 whose timed path is broken underneath is not; a new configuration,
-traffic mix and metric are found by name; without a card, or without the
-program beside it, ``run.py`` prints no result."""
+architecture, traffic mix and metric are found by name; without a card,
+or without the program beside it, ``run.py`` prints no result."""
 from __future__ import annotations
 
 import json
@@ -11,14 +11,15 @@ import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import pytest
 import torch
-from perfbench_tiny import CELLS, ROOT, one_thread, tiny_tree, write
+from perfbench_tiny import CELLS, MOE, ROOT, one_thread, tiny_tree, write
 
 from perfbench import manifest
 from perfbench.run import run_cell
-from repro_torch.models import paged_lm
+from repro_torch.models import layers, paged_lm
 
 SEED = 2**31 + 777
 CELL = json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"][0][
@@ -167,6 +168,79 @@ def test_new_files_are_found_by_name(tree, tmp_path):
     assert r["correct"]
     assert set(r["metrics"]) == {"requests_per_s", "setup_s"}
     assert manifest.reader(new, "per_layer", "prompt_tokens.batch")
+
+
+def _add_shared_expert_family(tree):
+    """An architecture that the decoder's files cannot build, a tiny MoE
+    with one shared expert of the routed experts' width (the port serves
+    it through ``n_shared_experts``), added as new files and new entries:
+    a reference, an adapter, a configuration, limits and manifest
+    entries.  Returns the files that were in the tree before."""
+    before = {p: p.read_bytes() for p in tree.rglob("*") if p.is_file()}
+    here = Path(__file__).parent / "shared_expert"
+    base = tree / "perfbench"
+    shutil.copy(here / "reference.py", base / "reference/shared.py")
+    shutil.copy(here / "adapter.py", base / "adapters/shared.py")
+    write(base / "configs/tiny-shared.json", {"perfbench": {
+        "arch": dict(MOE, n_shared_experts=1),
+        "reference": "perfbench/reference/shared.py",
+        "adapter": "perfbench/adapters/shared.py"}})
+    # set from the CPU readings of 8 seeds (the program / its shared
+    # expert left out): mean gap <= 0.0029 / >= 0.32; largest request
+    # mean <= 0.0118 / >= 0.49
+    write(base / "limits/tiny-shared.tclosed.json",
+          {"mean_logit_gap": {"limit": 0.01},
+           "max_request_mean_gap": {"limit": 0.1, "min_request_tokens": 8},
+           "min_tokens": 16})
+    man = json.loads((tree / "BENCHMARK.json").read_text())
+    man["configs"].append({"name": "tiny-shared", "source": "test",
+                           "file": "perfbench/configs/tiny-shared.json",
+                           "reduced": [], "why": "test"})
+    man["workloads"].append({"name": "tiny-shared.tclosed",
+                             "config": "tiny-shared", "traffic": "tclosed",
+                             "chips": 1, "why": "test"})
+    for m in man["end_to_end"] + man["per_layer"]:
+        if "workloads" in m and "tiny-moe.tclosed" in m["workloads"]:
+            m["workloads"].append("tiny-shared.tclosed")
+    write(tree / "BENCHMARK.json", man)
+    return before
+
+
+def _shared_expert_dropped(p, x):
+    """The port's shared expert, which only the shared-expert family has
+    in this tree, left out of each MoE layer's output."""
+    return torch.zeros_like(x)
+
+
+@pytest.mark.parametrize("shared", ["served", "dropped"])
+def test_new_architecture_is_found_by_name(tree, tmp_path, monkeypatch,
+                                           shared):
+    """The architecture case of :func:`test_new_files_are_found_by_name`:
+    a family with its own reference module and program adapter, no file
+    of the tree changed; its sound run is correct, and a run whose
+    program leaves the shared expert out is not."""
+    new = tmp_path / "t"
+    shutil.copytree(tree, new)
+    old_man = json.loads((new / "BENCHMARK.json").read_text())
+    before = _add_shared_expert_family(new)
+    changed = {p for p, data in before.items() if p.read_bytes() != data}
+    assert changed == {new / "BENCHMARK.json"}
+    man = json.loads((new / "BENCHMARK.json").read_text())
+    for group in ("configs", "workloads", "end_to_end", "per_layer"):
+        assert [e["name"] for e in man[group][:len(old_man[group])]] == \
+            [e["name"] for e in old_man[group]]
+    cell = manifest.cell(new, "tiny-shared.tclosed")
+    # the decoder's adapter cannot build it: the shared leaves go undrawn
+    decoder = manifest.cell(new, "tiny-moe.tclosed").adapter
+    with pytest.raises(RuntimeError, match="shared"):
+        decoder.build_lm(cell.adapter.model_config(cell.arch, "t"),
+                         cell.arch, SEED, "cpu", manifest.cell(
+                             new, "tiny-moe.tclosed").ref)
+    if shared == "dropped":
+        monkeypatch.setattr(layers, "apply_mlp", _shared_expert_dropped)
+    r = run(new, "tiny-shared.tclosed")
+    assert r["correct"] == (shared == "served"), r["checks"]
+    assert r["checks"]["tokens_judged"]["value"] >= 16
 
 
 @pytest.fixture
